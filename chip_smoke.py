@@ -1,0 +1,479 @@
+#!/usr/bin/env python3
+"""Smoke test of horovod_tpu_torch on one NVIDIA GPU (an H100 SXM is the
+target): the quickest proof that the port builds and trains on the card.
+
+Run from the root of a checkout, with no arguments:
+
+    python3 chip_smoke.py
+
+Each phase prints one JSON line; any failure raises and exits non-zero.
+
+1. device: the card's name, and its name and power limit as nvidia-smi
+   reports them;
+2. build: every CUDA kernel of the port, from the sources in the checkout;
+3. kernel: each kernel against its plain PyTorch version on the card, at
+   the training shape and at edge cases, each with its tolerance, and two
+   planted faults that the bf16 tolerance must reject; then its time, the
+   plain version's, the PyTorch library call's and the bound;
+4. gradient: the flash autograd Function's dq, dk, dv (lse cotangent
+   included) against autograd through the plain reference;
+5. train: the full-width default TransformerConfig (111,121,920
+   parameters, bf16 activations) trained for a few steps at batch
+   8 x 2048 through hvd.init() (NCCL), broadcast_parameters and
+   DistributedOptimizer(AdamW), after a small run that holds the flash
+   path's losses against the plain attention's; the kernel launch counts
+   are reset just before the full-width steps and read just after. Then
+   the same full-width steps with the model's default attention, whose
+   losses the flash path's must track.
+
+Then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
+{"ok": true, "device": {...}}. Without a CUDA device, or outside a
+checkout, it exits non-zero and prints no result.
+"""
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+# tolerances, kernel against plain version (at the kernel's key tile) on
+# the same inputs. fp32 outputs differ only by the order of fp32 sums (and
+# expf against torch.exp): absolute TOL_FP32.
+TOL_FP32 = 1e-5
+# bf16 and fp16 outputs are the same fp32 sums in another order, rounded to
+# the output type; the two disagree only where their fp32 values straddle
+# a rounding boundary, of the output or of one element of P (rounded to
+# V's type before P.V). So (1) every element lies within
+#     2 ulp(|ref|) + 2^-m (P|V|)
+# (one output rounding, with room for the fp32 noise, plus a one-step
+# change of every P element at once; m is the type's mantissa bits and P|V|
+# the plain version run on |V|), and (2) at most MISMATCH_LIMIT of the
+# elements differ at all. (2) catches faults that stay inside (1), such as
+# P not rounded before P.V: the planted faults below must fail it.
+MANTISSA_BITS = {"bfloat16": 7, "float16": 10}
+MISMATCH_LIMIT = 0.05
+TOL_LSE = 1e-4
+TOL_GRAD = 1e-4          # fp32 gradients, same reason as TOL_FP32
+TOL_SMALL_LOSS = 1e-4    # fp32 losses of the small flash-vs-plain run
+# full-width bf16 losses, flash against the model's default attention from
+# the same weights and data. The default attention rounds the scores to
+# bf16 before the softmax (flash keeps them fp32), which moves a loss that
+# is a mean over 16384 tokens by far less than TOL_FULL_LOSS_EARLY over
+# steps 1-2; from step 3 AdamW at 1e-3 amplifies the difference of the two
+# roundings from step to step, so steps 3-4 are held to 1% of the loss.
+TOL_FULL_LOSS_EARLY = 1e-3
+TOL_FULL_LOSS_LATE = 0.1
+
+PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_BYTES = 3.35e12         # H100 SXM HBM3
+
+TRAIN_STEPS = 4
+BATCH = 8
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi_line() -> str:
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60, check=True)
+    return r.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def visible_pairs(sq, sk, causal, q_off, k_off) -> int:
+    """(query, key) pairs the attention has to compute for these inputs."""
+    if not causal:
+        return sq * sk
+    return sum(min(max(q_off + i - k_off + 1, 0), sk) for i in range(sq))
+
+
+def half_agreement(torch, fa, out, ref, q, k, v, q_off, k_off, causal):
+    """A bf16/fp16 output against the plain version's: (the largest
+    |out - ref| over its bound, the share of elements that differ); the
+    limits are 1 and MISMATCH_LIMIT."""
+    bits = MANTISSA_BITS[str(ref.dtype).split(".")[-1]]
+    r = ref.float()
+    _, e = torch.frexp(r.abs().clamp_min(torch.finfo(ref.dtype).tiny))
+    ulp = torch.ldexp(torch.ones_like(r), e - 1 - bits)
+    pv, _ = fa.flash_fwd_plain(q, k, v.abs(), q_off, k_off, causal)
+    diff = (out.float() - r).abs()
+    bound = 2 * ulp + 2.0 ** -bits * pv.float()
+    return (diff / bound).max().item(), (diff > 0).float().mean().item()
+
+
+def planted_faults(torch, fa, q, k, v, ref):
+    """Two faults, each run through the plain version at the main-path
+    shape, that the bf16 limits must reject: P not rounded to bf16 before
+    P.V, and keys 1024-1087 of V weighted 1 + 2^-6."""
+    bh, s, d = q.shape
+    q4, k4, v4 = (t.view(1, bh, s, d).transpose(1, 2) for t in (q, k, v))
+    unrounded = fa.mha_reference(q4, k4, v4, causal=True).transpose(1, 2) \
+        .reshape(bh, s, d)
+    v_bad = v.clone()
+    v_bad[:, 1024:1088] = (v_bad[:, 1024:1088].float()
+                           * (1 + 2.0 ** -6)).to(v.dtype)
+    misweighted, _ = fa.flash_fwd_plain(q, k, v_bad, 0, 0, True)
+    readings = {}
+    for name, bad in (("p_not_rounded", unrounded),
+                      ("v_tile_misweighted", misweighted)):
+        ratio, share = half_agreement(torch, fa, bad, ref, q, k, v, 0, 0,
+                                      True)
+        readings[name] = {"max_over_bound": ratio, "mismatch_share": share,
+                          "rejected": ratio > 1 or share > MISMATCH_LIMIT}
+    emit({"phase": "kernel_planted_faults", "kernel": "flash_fwd",
+          "shape": [bh, s, s, d], "mismatch_limit": MISMATCH_LIMIT,
+          **readings})
+    if not all(r["rejected"] for r in readings.values()):
+        raise AssertionError("the bf16 limits accept a planted fault")
+
+
+def kernel_cases(torch, fa):
+    """Kernel against plain version on the card; returns the main-path
+    case's inputs and error."""
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
+    cases = [
+        # name, BH, S_q, S_k, D, dtype, causal, q_off, k_off, all-masked
+        ("main_path", 96, 2048, 2048, 64, "bfloat16", True, 0, 0, False),
+        ("main_shape_fp32", 96, 2048, 2048, 64, "float32", True, 0, 0,
+         False),
+        ("non_causal", 24, 1024, 1024, 64, "bfloat16", False, 0, 0, False),
+        ("offsets_visible", 2, 32, 32, 16, "float32", True, 64, 32, False),
+        ("offsets_masked", 2, 32, 32, 16, "float32", True, 0, 32, True),
+        ("ragged_sk_19", 4, 24, 19, 16, "float32", False, 0, 0, False),
+        ("small_fp32", 6, 48, 48, 16, "float32", True, 0, 0, False),
+        ("fp16_d128", 4, 300, 300, 128, "float16", True, 0, 0, False),
+        ("bf16_d32_ragged", 4, 130, 77, 32, "bfloat16", True, 60, 0, False),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    main = None
+    for (name, bh, sq, sk, d, dts, causal, qo, ko, masked) in cases:
+        q = torch.randn(bh, sq, d, generator=gen, device="cuda").to(dt[dts])
+        k = torch.randn(bh, sk, d, generator=gen, device="cuda").to(dt[dts])
+        v = torch.randn(bh, sk, d, generator=gen, device="cuda").to(dt[dts])
+        out, lse = fa.flash_fwd_cuda(q, k, v, qo, ko, causal)
+        ref, ref_lse = fa.flash_fwd_plain(q, k, v, qo, ko, causal)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        ok = bool(torch.isfinite(out.float()).all())
+        if dts == "float32":
+            limits = {"tol_out": TOL_FP32}
+            ok = ok and err <= TOL_FP32
+        else:
+            ratio, share = half_agreement(torch, fa, out, ref, q, k, v, qo,
+                                          ko, causal)
+            limits = {"max_over_bound": ratio, "mismatch_share": share,
+                      "mismatch_limit": MISMATCH_LIMIT}
+            ok = ok and ratio <= 1 and share <= MISMATCH_LIMIT
+        if masked:
+            # every row sees no key: out is exactly 0 and lse ~ -1e30
+            err_lse = None
+            ok = ok and out.abs().max().item() == 0.0 \
+                and lse.max().item() <= -1e29
+        else:
+            err_lse = (lse - ref_lse).abs().max().item()
+            ok = ok and err_lse <= TOL_LSE
+        emit({"phase": "kernel", "kernel": "flash_fwd", "case": name,
+              "shape": [bh, sq, sk, d], "dtype": dts, "causal": causal,
+              "q_offset": qo, "k_offset": ko, "max_abs_err_out": err,
+              **limits, "max_abs_err_lse": err_lse,
+              "tol_lse": TOL_LSE, "all_masked_gives_zeros": masked,
+              "ok": ok})
+        if not ok:
+            raise AssertionError(f"flash_fwd disagrees with its plain "
+                                 f"version in case {name}")
+        if name == "main_path":
+            planted_faults(torch, fa, q, k, v, ref)
+            main = (q, k, v, causal, err)
+        elif name == "main_shape_fp32":
+            emit({"phase": "kernel_timing_fp32", "kernel": "flash_fwd",
+                  "shape": [bh, sq, sk, d], "ms": cuda_ms(
+                      lambda: fa.flash_fwd_cuda(q, k, v, 0, 0, causal), 5)})
+    return main
+
+
+def kernel_timing(torch, fa, main):
+    import torch.nn.functional as F
+    q, k, v, causal, err = main
+    bh, s, d = q.shape
+    ms = cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, 0, 0, causal), 20)
+    plain_ms = cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, 0, 0, causal), 5)
+    q4, k4, v4 = (t.view(BATCH, bh // BATCH, s, d) for t in (q, k, v))
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=causal), 20)
+    # the backward that runs on the main path (plain PyTorch, fp32)
+    out, lse = fa.flash_fwd_cuda(q, k, v, 0, 0, causal)
+    g = torch.randn_like(q)
+    g_lse = torch.zeros_like(lse)
+    bwd_plain_ms = cuda_ms(lambda: fa.flash_bwd_plain(
+        q, k, v, out, lse, g, g_lse, 0, 0, causal), 3)
+    nbytes = (4 * q.numel()) * q.element_size() + bh * s * 4
+    flops = 4 * d * bh * visible_pairs(s, s, causal, 0, 0)
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    row = {"name": "flash_fwd", "route": "cuda",
+           "source": "horovod_tpu_torch/ops/csrc/flash_fwd.cu",
+           "replaces": "horovod_tpu/ops/flash_attention.py:83",
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "library_ms": library_ms}
+    emit({"phase": "kernel_timing", "kernel": "flash_fwd",
+          "shape": [bh, s, s, d], "dtype": str(q.dtype), "bytes": nbytes,
+          "flops": flops, "bwd_plain_ms": bwd_plain_ms, **row})
+    return row
+
+
+def gradient_check(torch, fa):
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    B, S, H, D = 2, 96, 2, 32
+    q, k, v = (torch.randn(B, S, H, D, generator=gen, device="cuda")
+               for _ in range(3))
+    w = torch.randn(B, S, H, D, generator=gen, device="cuda")
+
+    def loss_and_grads(fn):
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        out, lse = fn(qq, kk, vv)
+        ((out * w).sum() + torch.sin(lse).sum()).backward()
+        return qq.grad, kk.grad, vv.grad
+
+    def reference(qq, kk, vv):
+        out = fa.mha_reference(qq, kk, vv, causal=True)
+        s = torch.einsum("bqhd,bkhd->bhqk", qq, kk) / math.sqrt(D)
+        mask = torch.ones(S, S, dtype=torch.bool, device="cuda").tril()
+        lse = torch.logsumexp(s.masked_fill(~mask, fa.NEG_INF), dim=-1)
+        return out, lse.transpose(1, 2)
+
+    before = fa.LAUNCHES["flash_fwd"]
+    got = loss_and_grads(lambda a, b, c: fa.flash_attention_with_lse(
+        a, b, c, causal=True))
+    if fa.LAUNCHES["flash_fwd"] != before + 1:
+        raise AssertionError("the autograd Function did not launch the "
+                             "kernel")
+    want = loss_and_grads(reference)
+    errs = [(a - b).abs().max().item() for a, b in zip(got, want)]
+    ok = max(errs) <= TOL_GRAD
+    emit({"phase": "gradient", "shape": [B, S, H, D], "dtype": "float32",
+          "max_abs_err_dq_dk_dv": errs, "tol": TOL_GRAD, "ok": ok})
+    if not ok:
+        raise AssertionError("flash gradients disagree with the reference")
+
+
+def small_training_reference(torch, hvd):
+    """A small fp32 model trained 3 steps through the flash kernel and
+    through the plain attention, from the same weights and data."""
+    from horovod_tpu_torch.models import TransformerConfig
+    from horovod_tpu_torch.parallel import make_transformer_train_step
+    cfg = TransformerConfig(vocab_size=128, num_layers=2, d_model=64,
+                            num_heads=4, head_dim=16, max_seq_len=64,
+                            dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    data = torch.randint(0, cfg.vocab_size, (4, cfg.max_seq_len + 1),
+                         generator=gen, device="cuda")
+    losses = {}
+    for attention in ("flash", "default"):
+        b = make_transformer_train_step(
+            cfg, attention=attention,
+            generator=torch.Generator(device="cuda").manual_seed(3))
+        losses[attention] = [b.step(data[:, :-1], data[:, 1:]).item()
+                             for _ in range(3)]
+        b.optimizer.remove_hooks()
+    err = max(abs(a - b) for a, b in zip(losses["flash"], losses["default"]))
+    ok = err <= TOL_SMALL_LOSS
+    emit({"phase": "train_small_reference", "losses": losses,
+          "max_abs_err": err, "tol": TOL_SMALL_LOSS, "ok": ok})
+    if not ok:
+        raise AssertionError("flash training disagrees with plain attention")
+
+
+def model_flops_per_step(cfg) -> float:
+    """Model FLOPs of one training step, no recompute: 6 x matmul
+    parameters x tokens (the tied logits projection included), plus causal
+    attention's two products, forward (1x) and backward (2x)."""
+    E, H, D, L = cfg.d_model, cfg.num_heads, cfg.head_dim, cfg.num_layers
+    dense = L * (4 * E * H * D + 2 * E * cfg.mlp_ratio * E) \
+        + cfg.vocab_size * E
+    tokens = BATCH * cfg.max_seq_len
+    pairs = visible_pairs(cfg.max_seq_len, cfg.max_seq_len, True, 0, 0)
+    attention = 3 * L * 4 * BATCH * H * D * pairs
+    return 6.0 * dense * tokens + attention
+
+
+def step_breakdown(torch, bundle, tokens, targets):
+    """One more step, timed by phase with CUDA events (the bucket
+    allreduces run inside backward, their drain inside the optimizer)."""
+    import torch.nn.functional as F
+    model, opt = bundle.model, bundle.optimizer
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    opt.zero_grad(set_to_none=True)
+    ev[0].record()
+    logits = model(tokens)
+    loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           targets.reshape(-1))
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    opt.step()
+    ev[3].record()
+    torch.cuda.synchronize()
+    emit({"phase": "train_breakdown",
+          "forward_and_loss_ms": ev[0].elapsed_time(ev[1]),
+          "backward_ms": ev[1].elapsed_time(ev[2]),
+          "allreduce_drain_and_adamw_ms": ev[2].elapsed_time(ev[3])})
+
+
+def train_main_path(torch, hvd, fa, collectives, cfg, tokens, targets):
+    from horovod_tpu_torch.parallel import make_transformer_train_step
+    bundle = make_transformer_train_step(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0))
+    hvd.broadcast_parameters(bundle.model.state_dict(), root_rank=0)
+    n_params = sum(p.numel() for p in bundle.model.parameters())
+    if n_params != 111_121_920:
+        raise AssertionError(f"default config has {n_params} parameters")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    fa.LAUNCHES["flash_fwd"] = 0
+    collectives.COUNTS["allreduce"] = 0
+    losses, seconds = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss = bundle.step(tokens, targets).item()
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(loss)
+    launches = fa.LAUNCHES["flash_fwd"]
+    allreduces = collectives.COUNTS["allreduce"]
+
+    steady = seconds[1:]
+    step_s = sum(steady) / len(steady)
+    flops = model_flops_per_step(cfg)
+    result = {
+        "phase": "train", "config": "TransformerConfig() default",
+        "params": n_params, "batch": BATCH, "seq": cfg.max_seq_len,
+        "steps": TRAIN_STEPS, "losses": losses,
+        "ln_vocab": math.log(cfg.vocab_size),
+        "step_seconds": seconds,
+        "ms_per_step_steady": 1e3 * step_s,
+        "tokens_per_s_steady": BATCH * cfg.max_seq_len / step_s,
+        "model_flops_per_step": flops,
+        "mfu_vs_bf16_peak": flops / step_s / PEAK_BF16_FLOPS,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "flash_launches": launches, "allreduce_launches": allreduces,
+        "world_size": hvd.size(), "backend": hvd.basics.world().backend}
+    emit(result)
+    step_breakdown(torch, bundle, tokens, targets)
+    bundle.optimizer.remove_hooks()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("non-finite loss")
+    if abs(losses[0] - math.log(cfg.vocab_size)) > 1.0:
+        raise AssertionError(f"first loss {losses[0]} is not near ln(vocab)")
+    if launches != cfg.num_layers * TRAIN_STEPS:
+        raise AssertionError(f"{launches} flash launches, expected "
+                             f"{cfg.num_layers * TRAIN_STEPS}")
+    if allreduces <= 0:
+        raise AssertionError("no allreduce was launched")
+    return launches, losses
+
+
+def train_default_reference(torch, cfg, tokens, targets, flash_losses):
+    """The same full-width steps from the same weights and data with the
+    model's default attention; its losses must track the flash path's."""
+    from horovod_tpu_torch.parallel import make_transformer_train_step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    bundle = make_transformer_train_step(
+        cfg, attention="default",
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    losses = [bundle.step(tokens, targets).item()
+              for _ in range(TRAIN_STEPS)]
+    bundle.optimizer.remove_hooks()
+    errs = [abs(a - b) for a, b in zip(flash_losses, losses)]
+    tols = [TOL_FULL_LOSS_EARLY if i < 2 else TOL_FULL_LOSS_LATE
+            for i in range(TRAIN_STEPS)]
+    ok = all(e <= t for e, t in zip(errs, tols))
+    emit({"phase": "train_default_reference", "losses_default": losses,
+          "losses_flash": flash_losses, "abs_diff": errs, "tol": tols,
+          "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "ok": ok})
+    if not ok:
+        raise AssertionError("full-width flash losses disagree with the "
+                             "default attention's")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import collectives
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.models import TransformerConfig
+
+    # fp32 products in full fp32 on the card, for the comparisons
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    name = torch.cuda.get_device_name(0)
+    smi = nvidia_smi_line()
+    emit({"phase": "device", "name": name, "nvidia_smi": smi,
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda, "python": sys.version.split()[0]})
+
+    t0 = time.perf_counter()
+    per_kernel = _build.build()
+    ptxas = [line.strip() for log in _build.build_logs.values()
+             for line in log.splitlines()
+             if "registers" in line or "spill" in line]
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "per_kernel_seconds": per_kernel, "ptxas": ptxas})
+
+    main_case = kernel_cases(torch, fa)
+    row = kernel_timing(torch, fa, main_case)
+    gradient_check(torch, fa)
+
+    hvd.init()
+    small_training_reference(torch, hvd)
+    cfg = TransformerConfig()
+    data = torch.randint(0, cfg.vocab_size, (BATCH, cfg.max_seq_len + 1),
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(1), device="cuda")
+    tokens, targets = data[:, :-1], data[:, 1:]
+    row["launches"], losses = train_main_path(torch, hvd, fa, collectives,
+                                              cfg, tokens, targets)
+    train_default_reference(torch, cfg, tokens, targets, losses)
+    hvd.shutdown()
+
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    emit({"kernels": [{key: row[key] for key in keys}]})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,39 @@
+"""horovod_tpu_torch: the PyTorch/CUDA port of horovod_tpu.
+
+The second package of the repository, beside the JAX one it is held
+against. It imports torch and numpy, never JAX or anything of
+``horovod_tpu``, and keeps its own copies of what it needs. The data plane
+is ``torch.distributed`` (NCCL on the card, gloo on the CPU); the kernels
+that horovod_tpu wrote in Pallas for the TPU are hand-written CUDA for
+Hopper (``ops/csrc``). Entry points run on CUDA unless the caller passes
+``device="cpu"``.
+
+Quick start (data-parallel)::
+
+    import horovod_tpu_torch as hvd
+    hvd.init()
+    opt = hvd.DistributedOptimizer(torch.optim.AdamW(model.parameters()),
+                                   named_parameters=model.named_parameters())
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+"""
+
+__version__ = "0.1.0"
+
+from .basics import (  # noqa: F401
+    init, shutdown, is_initialized, rank, size, local_rank, local_size,
+    device,
+)
+from .collectives import (  # noqa: F401
+    ReduceOp, Average, Sum,
+    allreduce, allreduce_async, grouped_allreduce, grouped_allreduce_async,
+    broadcast, broadcast_, poll, synchronize, barrier,
+)
+from .compression import Compression  # noqa: F401
+from .exceptions import (  # noqa: F401
+    HorovodInternalError, HostsUpdatedInterrupt, TensorValidationError,
+    DuplicateNameError, NotInitializedError, StallError,
+)
+from .functions import (  # noqa: F401
+    broadcast_parameters, broadcast_optimizer_state,
+)
+from .optimizer import DistributedOptimizer  # noqa: F401

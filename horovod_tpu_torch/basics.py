@@ -1,0 +1,163 @@
+"""World state: init/shutdown, rank and size, and the device the port runs
+on (counterpart of ``horovod_tpu/basics.py``).
+
+``init()`` always creates a ``torch.distributed`` process group, even for a
+single process, so every collective goes through the real wire: NCCL on a
+CUDA device, gloo on the CPU. Identity comes from arguments or the same env
+contract as the JAX package — ``HVD_TPU_COORDINATOR_ADDR`` (host:port of
+the rendezvous), ``HVD_TPU_RANK`` and ``HVD_TPU_SIZE``. Without them the
+process is a world of one, rendezvousing with itself on a free localhost
+port.
+
+The port runs on CUDA unless the caller asks for the CPU
+(``device="cpu"``); with no card and no such request, entry points raise.
+"""
+
+import dataclasses
+import socket
+import threading
+from typing import Any, Dict, Optional
+
+import torch
+import torch.distributed as dist
+
+from . import config as _config
+from .exceptions import NotInitializedError
+
+
+@dataclasses.dataclass
+class World:
+    config: _config.Config
+    device: torch.device
+    backend: str
+    rank: int
+    size: int
+    #: async collective handles: id -> pending work (collectives.py)
+    handles: Dict[int, Any] = dataclasses.field(default_factory=dict)
+    next_handle: int = 0
+    lock: threading.Lock = dataclasses.field(default_factory=threading.Lock)
+
+
+_world: Optional[World] = None
+_lock = threading.Lock()
+
+
+def _local_rank(cfg: _config.Config) -> int:
+    v = cfg.get(_config.LOCAL_RANK)
+    return v if v >= 0 else 0
+
+
+def resolve_device(device=None, cfg: Optional[_config.Config] = None
+                   ) -> torch.device:
+    """The device an entry point runs on: ``cuda:<local_rank>`` when
+    ``device`` is None, else ``device`` itself ("cpu", "cuda:1", "meta").
+    Raises when CUDA is asked for, or defaulted to, and there is none."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "horovod_tpu_torch runs on a CUDA device unless asked "
+                "otherwise, and no CUDA device is available; pass "
+                "device='cpu' to run on the CPU")
+        return torch.device("cuda", _local_rank(cfg or _config.Config()))
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {dev} asked for, but no CUDA device "
+                               f"is available")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def init(device=None, coordinator_address: Optional[str] = None,
+         num_processes: Optional[int] = None,
+         process_id: Optional[int] = None,
+         config_overrides: Optional[dict] = None) -> None:
+    """Initialize horovod_tpu_torch: resolve identity, pick the device and
+    create the process group. A second call is a no-op until
+    :func:`shutdown`."""
+    global _world
+    with _lock:
+        if _world is not None:
+            return
+        cfg = _config.Config(config_overrides)
+        dev = resolve_device(device, cfg)
+        if dev.type == "meta":
+            raise ValueError("init() needs a real device, not meta")
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        if dist.is_initialized():
+            raise RuntimeError("torch.distributed is already initialized; "
+                               "horovod_tpu_torch.init() creates its own "
+                               "process group")
+        addr = coordinator_address or cfg.get(_config.COORDINATOR_ADDR)
+        n = num_processes if num_processes is not None \
+            else cfg.get(_config.SIZE)
+        pid = process_id if process_id is not None \
+            else cfg.get(_config.RANK)
+        if addr and n > 1:
+            if not 0 <= pid < n:
+                raise ValueError(f"rank {pid} out of range for world size "
+                                 f"{n}: set HVD_TPU_RANK")
+            url = f"tcp://{addr}"
+        else:
+            n, pid = 1, 0
+            url = f"tcp://127.0.0.1:{_free_port()}"
+        kwargs = {"device_id": dev} if dev.type == "cuda" else {}
+        dist.init_process_group(backend, init_method=url, world_size=n,
+                                rank=pid, **kwargs)
+        _world = World(config=cfg, device=dev, backend=backend, rank=pid,
+                       size=n)
+
+
+def shutdown() -> None:
+    """Tear down the world and its process group. Safe to call twice;
+    init() may be called again after it."""
+    global _world
+    with _lock:
+        if _world is None:
+            return
+        _world = None
+        dist.destroy_process_group()
+
+
+def is_initialized() -> bool:
+    return _world is not None
+
+
+def world() -> World:
+    w = _world
+    if w is None:
+        raise NotInitializedError()
+    return w
+
+
+def rank() -> int:
+    return world().rank
+
+
+def size() -> int:
+    return world().size
+
+
+def local_rank() -> int:
+    return _local_rank(world().config)
+
+
+def local_size() -> int:
+    v = world().config.get(_config.LOCAL_SIZE)
+    return v if v >= 0 else 1
+
+
+def device() -> torch.device:
+    """The device this process's collectives and training run on."""
+    return world().device

@@ -1,0 +1,68 @@
+"""Carry weights from the JAX package's flax transformer into the port.
+
+The port keeps the flax module's parameter names and shapes, so conversion
+is a copy: the nested dict ``{"layer_0": {"attn": {"wq": ...}}}`` becomes
+the ``state_dict`` key ``layer_0.attn.wq``.
+"""
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from .transformer import Transformer, TransformerConfig
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, Any]:
+    flat = {}
+    for key, val in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(val, Mapping):
+            flat.update(_flatten(val, name + "."))
+        else:
+            flat[name] = val
+    return flat
+
+
+def _infer_config(flat: Dict[str, Any]) -> TransformerConfig:
+    def shape(name):
+        if name not in flat:
+            raise ValueError(f"flax tree is missing leaf {name!r}")
+        return tuple(np.shape(flat[name]))
+
+    vocab, d_model = shape("embedding")
+    max_seq_len = shape("pos_embedding")[0]
+    _, heads, head_dim = shape("layer_0.attn.wq")
+    hidden = shape("layer_0.mlp.wi")[1]
+    num_layers = len({n.split(".")[0] for n in flat
+                      if n.startswith("layer_")})
+    return TransformerConfig(
+        vocab_size=vocab, num_layers=num_layers, d_model=d_model,
+        num_heads=heads, head_dim=head_dim,
+        mlp_ratio=max(hidden // d_model, 1), max_seq_len=max_seq_len)
+
+
+def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's ``state_dict`` (fp32 CPU tensors) from the JAX
+    transformer's parameter tree, given as nested dicts of numpy arrays
+    (unboxed with ``flax.linen.meta.unbox``; a top-level ``{"params": ...}``
+    is accepted). The model's size is read from the tree; every leaf's name
+    and shape must then match that model exactly, and a leftover or
+    missing leaf raises ValueError."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    flat = _flatten(tree)
+    cfg = _infer_config(flat)
+    expected = {name: tuple(t.shape) for name, t in
+                Transformer(cfg, device="meta").state_dict().items()}
+    missing = sorted(set(expected) - set(flat))
+    leftover = sorted(set(flat) - set(expected))
+    if missing or leftover:
+        raise ValueError(f"flax tree does not match the transformer: "
+                         f"missing {missing}, leftover {leftover}")
+    wrong = [f"{n}: {tuple(np.shape(flat[n]))} != {s}"
+             for n, s in expected.items() if tuple(np.shape(flat[n])) != s]
+    if wrong:
+        raise ValueError("flax leaf shapes do not match: " + "; ".join(wrong))
+    return {name: torch.from_numpy(np.array(flat[name], dtype=np.float32))
+            for name in expected}

@@ -1,0 +1,119 @@
+"""The port's CUDA kernel on the card, against its plain PyTorch version.
+
+Marked ``cuda``: every test skips on a machine without an NVIDIA GPU (the
+CPU suite). On the card, from the root of a checkout:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
+
+(``--noconftest``: tests/conftest.py configures JAX, which these tests do
+not use.) Tolerances are chip_smoke.py's, and so is the check of a bf16 or
+fp16 output: fp32 outputs within 1e-5 (order of fp32 sums only); bf16 and
+fp16 outputs within a per-element bound of one output rounding plus one
+rounding step of P, with at most 5% of the elements differing at all;
+lse within 1e-4.
+"""
+
+import pytest
+import torch
+
+from chip_smoke import MISMATCH_LIMIT, TOL_FP32, TOL_LSE, half_agreement
+from horovod_tpu_torch.ops import flash_attention as fa
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _qkv(device, dtype, bh, sq, sk, d, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(bh, s, d, generator=gen, device=device).to(dtype)
+            for s in (sq, sk, sk)]
+
+
+def _check(q, k, v, q_off, k_off, causal):
+    before = fa.LAUNCHES["flash_fwd"]
+    out, lse = fa.flash_fwd_cuda(q, k, v, q_off, k_off, causal)
+    assert fa.LAUNCHES["flash_fwd"] == before + 1
+    ref, ref_lse = fa.flash_fwd_plain(q, k, v, q_off, k_off, causal)
+    torch.cuda.synchronize()
+    assert out.dtype == q.dtype and lse.dtype == torch.float32
+    if q.dtype == torch.float32:
+        assert (out - ref).abs().max().item() <= TOL_FP32
+    else:
+        ratio, share = half_agreement(torch, fa, out, ref, q, k, v, q_off,
+                                      k_off, causal)
+        assert ratio <= 1 and share <= MISMATCH_LIMIT, (ratio, share)
+    return out, lse, ref_lse
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_kernel_matches_plain_ragged(cuda, dtype, d, causal):
+    # ragged S_q and S_k; q_offset 70 leaves every row at least one key
+    q, k, v = _qkv(cuda, dtype, 3, 131, 200, d, seed=d)
+    _, lse, ref_lse = _check(q, k, v, 70, 0, causal)
+    assert (lse - ref_lse).abs().max().item() <= TOL_LSE
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rows_that_see_no_key_give_zero(cuda, dtype):
+    q, k, v = _qkv(cuda, dtype, 2, 96, 96, 64)
+    out, lse, _ = _check(q, k, v, 0, 96, True)        # every row masked
+    assert torch.count_nonzero(out) == 0 and lse.max().item() <= -1e29
+    out, lse, ref_lse = _check(q, k, v, 0, 10, True)  # rows 0-9 masked
+    assert torch.count_nonzero(out[:, :10]) == 0
+    assert (lse[:, 10:] - ref_lse[:, 10:]).abs().max().item() <= TOL_LSE
+
+
+def test_device_offsets_equal_int_offsets(cuda):
+    q, k, v = _qkv(cuda, torch.bfloat16, 2, 128, 128, 64)
+    qo = torch.tensor([40], dtype=torch.int32, device=cuda)
+    ko = torch.tensor([8], dtype=torch.int32, device=cuda)
+    a = fa.flash_fwd_cuda(q, k, v, 40, 8, True)
+    b = fa.flash_fwd_cuda(q, k, v, qo, ko, True)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    q, k, v = _qkv(cuda, torch.bfloat16, 2, 32, 32, 64)
+    before = fa.LAUNCHES["flash_fwd"]
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_fwd_cuda(*_qkv(cuda, torch.bfloat16, 2, 32, 32, 48))
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_fwd_cuda(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_fwd_cuda(q.transpose(1, 2), k, v)
+    flat = torch.zeros(2 * 32 * 64 + 1, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_fwd_cuda(flat[1:].view(2, 32, 64), k, v)
+    with pytest.raises(ValueError, match="share dtype"):
+        fa.flash_fwd_cuda(q, k.half(), v)
+    with pytest.raises(ValueError, match="int32"):
+        fa.flash_fwd_cuda(q, k, v, torch.tensor([0], device=cuda), 0)
+    assert fa.LAUNCHES["flash_fwd"] == before
+
+
+def test_autograd_function_on_the_card(cuda):
+    B, S, H, D = 2, 80, 2, 32
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v, w = (torch.randn(B, S, H, D, generator=gen, device=cuda)
+                  for _ in range(4))
+
+    def grads(flash):
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        if flash:
+            out = fa.flash_attention(qq, kk, vv, causal=True)
+        else:
+            out = fa.mha_reference(qq, kk, vv, causal=True)
+        (out * w).sum().backward()
+        return qq.grad, kk.grad, vv.grad
+    for a, b in zip(grads(True), grads(False)):
+        assert (a - b).abs().max().item() <= 1e-4
