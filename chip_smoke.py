@@ -34,6 +34,7 @@ checkout, it exits non-zero and prints no result.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -99,6 +100,23 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def ptxas_report(logs) -> dict:
+    """{kernel instantiation: its ptxas spill and register lines} from the
+    ``nvcc -Xptxas -v`` logs of a build."""
+    types = {"13__nv_bfloat16": "bf16", "6__half": "fp16", "f": "fp32"}
+    report, entry = {}, None
+    for line in "\n".join(logs).splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            t = re.search(r"(flash_fwd_[a-z]+)I(\w+?)Li(\d+)E", m.group(1))
+            entry = (f"{t.group(1)}<{types.get(t.group(2), t.group(2))}, "
+                     f"{t.group(3)}>" if t else m.group(1))
+        elif entry and ("registers" in line or "spill" in line):
+            report.setdefault(entry, []).append(
+                line.split("info    :")[-1].strip())
+    return report
+
+
 def visible_pairs(sq, sk, causal, q_off, k_off) -> int:
     """(query, key) pairs the attention has to compute for these inputs."""
     if not causal:
@@ -114,7 +132,8 @@ def half_agreement(torch, fa, out, ref, q, k, v, q_off, k_off, causal):
     r = ref.float()
     _, e = torch.frexp(r.abs().clamp_min(torch.finfo(ref.dtype).tiny))
     ulp = torch.ldexp(torch.ones_like(r), e - 1 - bits)
-    pv, _ = fa.flash_fwd_plain(q, k, v.abs(), q_off, k_off, causal)
+    pv, _ = fa.flash_fwd_plain(q, k, v.abs(), q_off, k_off, causal,
+                               block_k=fa.KEY_TILE)
     diff = (out.float() - r).abs()
     bound = 2 * ulp + 2.0 ** -bits * pv.float()
     return (diff / bound).max().item(), (diff > 0).float().mean().item()
@@ -131,7 +150,8 @@ def planted_faults(torch, fa, q, k, v, ref):
     v_bad = v.clone()
     v_bad[:, 1024:1088] = (v_bad[:, 1024:1088].float()
                            * (1 + 2.0 ** -6)).to(v.dtype)
-    misweighted, _ = fa.flash_fwd_plain(q, k, v_bad, 0, 0, True)
+    misweighted, _ = fa.flash_fwd_plain(q, k, v_bad, 0, 0, True,
+                                        block_k=fa.KEY_TILE)
     readings = {}
     for name, bad in (("p_not_rounded", unrounded),
                       ("v_tile_misweighted", misweighted)):
@@ -152,26 +172,37 @@ def kernel_cases(torch, fa):
     dt = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
     cases = [
-        # name, BH, S_q, S_k, D, dtype, causal, q_off, k_off, all-masked
-        ("main_path", 96, 2048, 2048, 64, "bfloat16", True, 0, 0, False),
-        ("main_shape_fp32", 96, 2048, 2048, 64, "float32", True, 0, 0,
-         False),
-        ("non_causal", 24, 1024, 1024, 64, "bfloat16", False, 0, 0, False),
-        ("offsets_visible", 2, 32, 32, 16, "float32", True, 64, 32, False),
-        ("offsets_masked", 2, 32, 32, 16, "float32", True, 0, 32, True),
-        ("ragged_sk_19", 4, 24, 19, 16, "float32", False, 0, 0, False),
-        ("small_fp32", 6, 48, 48, 16, "float32", True, 0, 0, False),
-        ("fp16_d128", 4, 300, 300, 128, "float16", True, 0, 0, False),
-        ("bf16_d32_ragged", 4, 130, 77, 32, "bfloat16", True, 60, 0, False),
+        # name, BH, S_q, S_k, D, dtype, causal, q_off, k_off
+        ("main_path", 96, 2048, 2048, 64, "bfloat16", True, 0, 0),
+        ("main_shape_fp32", 96, 2048, 2048, 64, "float32", True, 0, 0),
+        ("non_causal", 24, 1024, 1024, 64, "bfloat16", False, 0, 0),
+        ("offsets_visible", 2, 32, 32, 16, "float32", True, 64, 32),
+        ("offsets_masked", 2, 32, 32, 16, "float32", True, 0, 32),
+        ("ragged_sk_19", 4, 24, 19, 16, "float32", False, 0, 0),
+        ("small_fp32", 6, 48, 48, 16, "float32", True, 0, 0),
+        ("fp16_d128", 4, 300, 300, 128, "float16", True, 0, 0),
+        ("bf16_d32_ragged", 4, 130, 77, 32, "bfloat16", True, 60, 0),
+        # edges of the bf16 kernel's tiles: one row past a tile, less than
+        # one q-tile, one head, offsets that are not tile multiples, rows
+        # that see no key beside rows that do inside one tile, D 128
+        ("bf16_s2049", 8, 2049, 2049, 64, "bfloat16", True, 0, 0),
+        ("bf16_s64", 8, 64, 64, 64, "bfloat16", True, 0, 0),
+        ("bf16_bh1", 1, 2048, 2048, 64, "bfloat16", True, 0, 0),
+        ("bf16_q_offset", 8, 2048, 4096, 64, "bfloat16", True, 2048 + 37,
+         0),
+        ("bf16_k_offset_masked_rows", 8, 512, 512, 64, "bfloat16", True, 0,
+         100),
+        ("bf16_d128_s2048", 16, 2048, 2048, 128, "bfloat16", True, 0, 0),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
     main = None
-    for (name, bh, sq, sk, d, dts, causal, qo, ko, masked) in cases:
+    for (name, bh, sq, sk, d, dts, causal, qo, ko) in cases:
         q = torch.randn(bh, sq, d, generator=gen, device="cuda").to(dt[dts])
         k = torch.randn(bh, sk, d, generator=gen, device="cuda").to(dt[dts])
         v = torch.randn(bh, sk, d, generator=gen, device="cuda").to(dt[dts])
         out, lse = fa.flash_fwd_cuda(q, k, v, qo, ko, causal)
-        ref, ref_lse = fa.flash_fwd_plain(q, k, v, qo, ko, causal)
+        ref, ref_lse = fa.flash_fwd_plain(q, k, v, qo, ko, causal,
+                                          block_k=fa.KEY_TILE)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         ok = bool(torch.isfinite(out.float()).all())
@@ -184,19 +215,22 @@ def kernel_cases(torch, fa):
             limits = {"max_over_bound": ratio, "mismatch_share": share,
                       "mismatch_limit": MISMATCH_LIMIT}
             ok = ok and ratio <= 1 and share <= MISMATCH_LIMIT
-        if masked:
-            # every row sees no key: out is exactly 0 and lse ~ -1e30
-            err_lse = None
-            ok = ok and out.abs().max().item() == 0.0 \
-                and lse.max().item() <= -1e29
-        else:
-            err_lse = (lse - ref_lse).abs().max().item()
+        # a row that sees no key gives exactly 0 and lse ~ -1e30
+        sees = torch.arange(sq, device="cuda") + qo >= ko if causal \
+            else torch.ones(sq, dtype=torch.bool, device="cuda")
+        masked_rows = int((~sees).sum())
+        if masked_rows:
+            ok = ok and out[:, ~sees].abs().max().item() == 0.0 \
+                and lse[:, ~sees].max().item() <= -1e29
+        err_lse = None
+        if masked_rows < sq:
+            err_lse = (lse[:, sees] - ref_lse[:, sees]).abs().max().item()
             ok = ok and err_lse <= TOL_LSE
         emit({"phase": "kernel", "kernel": "flash_fwd", "case": name,
               "shape": [bh, sq, sk, d], "dtype": dts, "causal": causal,
               "q_offset": qo, "k_offset": ko, "max_abs_err_out": err,
               **limits, "max_abs_err_lse": err_lse,
-              "tol_lse": TOL_LSE, "all_masked_gives_zeros": masked,
+              "tol_lse": TOL_LSE, "rows_seeing_no_key": masked_rows,
               "ok": ok})
         if not ok:
             raise AssertionError(f"flash_fwd disagrees with its plain "
@@ -216,7 +250,8 @@ def kernel_timing(torch, fa, main):
     q, k, v, causal, err = main
     bh, s, d = q.shape
     ms = cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, 0, 0, causal), 20)
-    plain_ms = cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, 0, 0, causal), 5)
+    plain_ms = cuda_ms(lambda: fa.flash_fwd_plain(
+        q, k, v, 0, 0, causal, block_k=fa.KEY_TILE), 5)
     q4, k4, v4 = (t.view(BATCH, bh // BATCH, s, d) for t in (q, k, v))
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q4, k4, v4, is_causal=causal), 20)
@@ -239,7 +274,10 @@ def kernel_timing(torch, fa, main):
            "library_ms": library_ms}
     emit({"phase": "kernel_timing", "kernel": "flash_fwd",
           "shape": [bh, s, s, d], "dtype": str(q.dtype), "bytes": nbytes,
-          "flops": flops, "bwd_plain_ms": bwd_plain_ms, **row})
+          "flops": flops, "tflops": flops / (ms * 1e-3) / 1e12,
+          "bound_share": row["bound_ms"] / ms,
+          "library_tflops": flops / (library_ms * 1e-3) / 1e12,
+          "bwd_plain_ms": bwd_plain_ms, **row})
     return row
 
 
@@ -444,9 +482,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     per_kernel = _build.build()
-    ptxas = [line.strip() for log in _build.build_logs.values()
-             for line in log.splitlines()
-             if "registers" in line or "spill" in line]
+    ptxas = ptxas_report(_build.build_logs.values())
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_kernel_seconds": per_kernel, "ptxas": ptxas})
 

@@ -3,14 +3,14 @@ kernel.
 
 Counterpart of ``horovod_tpu/ops/flash_attention.py``. The forward on a
 CUDA tensor is the CUDA C++ in ``csrc/flash_fwd.cu`` (it replaces the
-Pallas TPU kernel ``_fwd_kernel``): tensor-core tiles for bf16 and fp16,
-scalar fp32 FMAs for fp32; its note says what it computes and what bounds
-it. On a CPU tensor the forward is :func:`flash_fwd_plain`,
-the same recurrence in plain PyTorch. The backward is
-:func:`flash_bwd_plain` on either device: the JAX package's backward
-(``_flash_vjp_bwd``) is plain XLA, not a kernel, and this is its
-counterpart — a blockwise recompute over K in fp32 that also carries the
-lse cotangent, ``ds = p * (dp - delta + g_lse) * scale``.
+Pallas TPU kernel ``_fwd_kernel``): TMA and wgmma tiles with
+warp-specialised warpgroups for bf16 and fp16, scalar fp32 FMAs for fp32;
+its note says what it computes and what bounds it. On a CPU tensor the
+forward is :func:`flash_fwd_plain`, the same recurrence in plain PyTorch.
+The backward is :func:`flash_bwd_plain` on either device: the JAX
+package's backward (``_flash_vjp_bwd``) is plain XLA, not a kernel, and
+this is its counterpart — a blockwise recompute over K in fp32 that also
+carries the lse cotangent, ``ds = p * (dp - delta + g_lse) * scale``.
 
 Positions are global: ``q_offset``/``k_offset`` give the global index of
 local row 0 for causal masking across sequence shards. They may be Python
@@ -31,12 +31,16 @@ import torch
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
+#: keys per K/V tile of the bf16/fp16 kernel (``kKeyTile`` in
+#: csrc/flash_fwd.cu): P is rounded relative to the running max after each
+#: tile, so the plain version matches the kernel's rounding at this tile
+KEY_TILE = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 #: kernel launches, one added per launch of the CUDA kernel by its wrapper
 LAUNCHES = {"flash_fwd": 0}
 
-_lib = None
+_kernel = None
 _offsets = {}
 
 
@@ -74,7 +78,8 @@ def _visible(qpos, kpos, causal: bool):
 
 
 def flash_fwd_plain(q, k, v, q_offset=0, k_offset=0, causal: bool = True,
-                    sm_scale: Optional[float] = None, block_k: int = 64):
+                    sm_scale: Optional[float] = None,
+                    block_k: int = KEY_TILE):
     """The kernel's recurrence in PyTorch: (BH, S_q, D) x (BH, S_k, D) ->
     out (BH, S_q, D) in q's dtype, lse (BH, S_q) fp32. ``block_k`` is the
     kernel's key tile: P is rounded to V's dtype relative to the running
@@ -110,17 +115,21 @@ def flash_fwd_plain(q, k, v, q_offset=0, k_offset=0, causal: bool = True,
     return (o / l).to(q.dtype), (m + torch.log(l))[..., 0]
 
 
+def bind(lib):
+    """The C entry point ``hvd_flash_fwd`` of a built library, typed."""
+    fn = lib.hvd_flash_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _load_kernel():
-    global _lib
-    if _lib is None:
+    global _kernel
+    if _kernel is None:
         from . import _build
-        lib = _build.load("flash_fwd")
-        fn = lib.hvd_flash_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        _kernel = bind(_build.load("flash_fwd"))
+    return _kernel
 
 
 def _offset_tensor(off, device):
@@ -167,13 +176,17 @@ def flash_fwd_cuda(q, k, v, q_offset=0, k_offset=0, causal: bool = True,
         raise ValueError("flash_fwd_cuda: empty input")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)
+    if not (0 < sm_scale < math.inf):
+        # the bf16/fp16 kernel takes each row's max on the raw scores
+        raise ValueError(f"flash_fwd_cuda: sm_scale must be positive and "
+                         f"finite, got {sm_scale}")
     qo = _offset_tensor(q_offset, q.device)
     ko = _offset_tensor(k_offset, q.device)
-    lib = _load_kernel()
+    kernel = _load_kernel()
     out = torch.empty_like(q)
     lse = torch.empty(BH, SQ, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.hvd_flash_fwd(
+    err = kernel(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), qo.data_ptr(), ko.data_ptr(), BH, SQ, SK, D,
         _DTYPE_CODES[q.dtype], int(bool(causal)), float(sm_scale), stream)

@@ -63,6 +63,16 @@ def test_kernel_matches_plain_ragged(cuda, dtype, d, causal):
     assert (lse - ref_lse).abs().max().item() <= TOL_LSE
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("s", [64, 127, 128, 129, 255, 257])
+def test_kernel_matches_plain_at_tile_edges(cuda, dtype, s):
+    # S_q = S_k on both sides of the 128-key tile and of the 64-row
+    # warpgroup slices of a q-tile, causal
+    q, k, v = _qkv(cuda, dtype, 3, s, s, 64, seed=s)
+    _, lse, ref_lse = _check(q, k, v, 0, 0, True)
+    assert (lse - ref_lse).abs().max().item() <= TOL_LSE
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rows_that_see_no_key_give_zero(cuda, dtype):
     q, k, v = _qkv(cuda, dtype, 2, 96, 96, 64)
@@ -98,6 +108,8 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         fa.flash_fwd_cuda(q, k.half(), v)
     with pytest.raises(ValueError, match="int32"):
         fa.flash_fwd_cuda(q, k, v, torch.tensor([0], device=cuda), 0)
+    with pytest.raises(ValueError, match="sm_scale"):
+        fa.flash_fwd_cuda(q, k, v, sm_scale=-0.125)
     assert fa.LAUNCHES["flash_fwd"] == before
 
 

@@ -9,6 +9,9 @@ differs (different tile sizes, XLA against PyTorch reductions).
 """
 
 import importlib
+import inspect
+import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -104,6 +107,18 @@ def test_plain_forward_block_size_is_only_summation_order():
     b = tfa.flash_fwd_plain(q, k, v, 3, 0, True, block_k=128)
     _close(a[0], b[0])
     _close(a[1], b[1])
+
+
+def test_plain_key_block_is_the_kernel_key_tile():
+    """The plain version's default key block is the bf16/fp16 kernel's key
+    tile, read from the kernel's source: P is rounded relative to the
+    running max after each tile, so only at the same tile do the two round
+    alike (the card's agreement checks rely on it)."""
+    src = pathlib.Path(tfa.__file__).parent / "csrc" / "flash_fwd.cu"
+    found = re.findall(r"constexpr int kKeyTile = (\d+);", src.read_text())
+    assert [int(x) for x in found] == [tfa.KEY_TILE]
+    default = inspect.signature(tfa.flash_fwd_plain).parameters["block_k"]
+    assert default.default == tfa.KEY_TILE
 
 
 def test_lse_values():
