@@ -25,6 +25,16 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
    are reset just before the full-width steps and read just after. Then
    the same full-width steps with the model's default attention, whose
    losses the flash path's must track.
+6. collectives: every collective verb on CUDA tensors through NCCL at
+   size 1, at the full-width trainer's sizes (its parameters, its AdamW
+   state, its gradient set in the optimizer's 7 buckets): parameter and
+   optimizer-state broadcast, grouped allreduce under every op, allgather,
+   alltoall with explicit splits, grouped broadcast, a process set, the
+   object verbs on the optimizer's state_dict(), SyncBatchNorm forward and
+   backward against nn.BatchNorm, then join() and join_round(); each is
+   checked exactly against its size-1 answer and timed (ms and GB/s, one
+   line per verb; NCCL at size 1 is a device copy, so these are the
+   port's own overheads, not a network's).
 
 Then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a
@@ -430,7 +440,7 @@ def train_main_path(torch, hvd, fa, collectives, cfg, tokens, targets):
                              f"{cfg.num_layers * TRAIN_STEPS}")
     if allreduces <= 0:
         raise AssertionError("no allreduce was launched")
-    return launches, losses
+    return launches, losses, bundle
 
 
 def train_default_reference(torch, cfg, tokens, targets, flash_losses):
@@ -456,6 +466,209 @@ def train_default_reference(torch, cfg, tokens, targets, flash_losses):
     if not ok:
         raise AssertionError("full-width flash losses disagree with the "
                              "default attention's")
+
+
+COLLECTIVES_NOTE = ("NCCL at size 1 is a device copy: these are the port's "
+                    "own overheads (dispatcher hop, fusion copies, scales), "
+                    "not a network's")
+COLLECTIVE_REPS = 3
+TOL_SYNC_BN = 1e-4   # fp32, E[x^2] - E[x]^2 against BatchNorm's variance
+
+
+def timed_ms(torch, fn, reps: int) -> float:
+    """Mean host-clock ms of ``fn`` over ``reps`` runs after one warm-up,
+    each run ending in a device synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def collectives_phase(torch, hvd, collectives, bundle):
+    """Every collective verb on NCCL at size 1, at the sizes of the
+    full-width trainer: its 111,121,920 fp32 parameters, its AdamW state,
+    and its gradient set in the DistributedOptimizer's buckets. Each verb
+    is checked exactly against its size-1 answer (the scales are powers of
+    two) and timed; one JSON line per verb."""
+    import torch.distributed as dist
+    model, opt = bundle.model, bundle.optimizer
+    buckets = [[p.grad for p in members] for members in opt._bucket_members]
+    grads = [g for b in buckets for g in b]
+    if len(buckets) != 7 or any(g is None for g in grads):
+        raise AssertionError(f"expected 7 buckets of gradients, got "
+                             f"{len(buckets)}")
+    grad_bytes = sum(g.numel() * g.element_size() for g in grads)
+    flat = [torch.cat([g.reshape(-1) for g in b]) for b in buckets]
+    out = {}
+
+    def report(verb, fn, nbytes, check, reps=COLLECTIVE_REPS, plain=None,
+               **extra):
+        """Time ``fn`` and check its result; ``plain`` is the same wire
+        work called straight from this thread (no dispatcher, no checks),
+        timed beside it."""
+        before = sum(collectives.COUNTS.values())
+        ms = timed_ms(torch, fn, reps)
+        calls = (sum(collectives.COUNTS.values()) - before) / (reps + 1)
+        exact = bool(check())
+        if plain is not None:
+            extra["plain_ms"] = timed_ms(torch, plain, reps)
+        emit({"phase": "collectives", "verb": verb, "ms": ms,
+              "bytes": nbytes, "gb_per_s": nbytes / ms / 1e6,
+              "wire_calls": calls, "exact": exact,
+              "note": COLLECTIVES_NOTE, **extra})
+        if not exact:
+            raise AssertionError(f"{verb} disagrees with its size-1 answer")
+
+    def fused(fn):
+        """Per bucket: flatten, ``fn`` on the flat buffer, split back."""
+        def run():
+            for b in buckets:
+                f = torch.cat([g.reshape(-1) for g in b])
+                fn(f)
+                torch.split(f, [g.numel() for g in b])
+        return run
+
+    sd = model.state_dict()
+    want_sd = {k: v.clone() for k, v in sd.items()}
+    report("broadcast_parameters",
+           lambda: hvd.broadcast_parameters(sd, root_rank=0),
+           sum(v.numel() * v.element_size() for v in sd.values()),
+           lambda: all(torch.equal(sd[k], want_sd[k]) for k in sd),
+           plain=lambda: [dist.broadcast(v, 0) for v in sd.values()],
+           tensors=len(sd))
+    del want_sd
+    states = [opt.state[p] for g in opt.param_groups for p in g["params"]]
+    tensors = [(s, k) for s in states for k, v in s.items()
+               if isinstance(v, torch.Tensor)]
+    want_state = [s[k].clone() for s, k in tensors]
+    report("broadcast_optimizer_state",
+           lambda: hvd.broadcast_optimizer_state(opt, root_rank=0),
+           sum(s[k].numel() * s[k].element_size() for s, k in tensors),
+           lambda: all(torch.equal(s[k], w) for (s, k), w in
+                       zip(tensors, want_state)),
+           tensors=len(tensors))
+    del want_state
+
+    for op, pre, post in ((hvd.Average, 0.5, 4.0), (hvd.Sum, 0.5, 4.0),
+                          (hvd.Min, 1.0, 1.0), (hvd.Max, 1.0, 1.0),
+                          (hvd.Product, 1.0, 1.0), (hvd.Adasum, 0.5, 4.0)):
+        def run(op=op, pre=pre, post=post):
+            hs = [hvd.grouped_allreduce_async(
+                b, op=op, prescale_factor=pre, postscale_factor=post,
+                name=f"collectives.bucket.{i}") for i, b in enumerate(buckets)]
+            out["reduced"] = [hvd.synchronize(h) for h in hs]
+        factor = pre * post
+        plain = None
+        if op == hvd.Sum:
+            plain = fused(lambda f: (dist.all_reduce(f), f.mul_(factor)))
+        report(f"grouped_allreduce.{op.value}", run, grad_bytes,
+               lambda factor=factor: all(
+                   torch.equal(o, g * factor if factor != 1.0 else g)
+                   for b, outs in zip(buckets, out["reduced"])
+                   for g, o in zip(b, outs)),
+               plain=plain, buckets=len(buckets), prescale=pre,
+               postscale=post)
+    out.clear()
+
+    def ragged_cases():
+        empty = hvd.allgather(flat[0][:0].view(0, 1))
+        scalar = hvd.allgather(flat[0][3])
+        rows = hvd.allgather(buckets[0][0])
+        return (empty.shape == (0, 1) and scalar.shape == (1,)
+                and torch.equal(scalar[0], flat[0][3])
+                and torch.equal(rows, buckets[0][0]))
+    report("allgather",
+           lambda: out.__setitem__("g", [hvd.allgather(f) for f in flat]),
+           grad_bytes,
+           lambda: ragged_cases() and all(torch.equal(g, f) for g, f in
+                                          zip(out["g"], flat)),
+           plain=lambda: [dist.all_gather_into_tensor(torch.empty_like(f), f)
+                          for f in flat],
+           buckets=len(flat))
+    report("alltoall",
+           lambda: out.__setitem__("a", [hvd.alltoall(f, splits=[len(f)])
+                                         for f in flat]),
+           grad_bytes,
+           lambda: all(torch.equal(a, f) for a, f in zip(out["a"], flat)),
+           plain=lambda: [dist.all_to_all_single(torch.empty_like(f), f)
+                          for f in flat],
+           buckets=len(flat), splits="explicit, one entry per process")
+    report("grouped_broadcast",
+           lambda: out.__setitem__("b", [hvd.grouped_broadcast(b, 0)
+                                         for b in buckets]),
+           grad_bytes,
+           lambda: all(torch.equal(o, g) for b, outs in zip(buckets, out["b"])
+                       for g, o in zip(b, outs)),
+           plain=fused(lambda f: dist.broadcast(f, 0)),
+           buckets=len(buckets))
+    ps = hvd.process_set_mesh(0)
+    report("grouped_allreduce.process_set_0",
+           lambda: out.__setitem__("p", [hvd.grouped_allreduce(
+               b, op=hvd.Sum, process_set=ps) for b in buckets]),
+           grad_bytes,
+           lambda: all(torch.equal(o, g) for b, outs in zip(buckets, out["p"])
+                       for g, o in zip(b, outs)),
+           process_set=list(ps.ranks))
+    out.clear()
+
+    state = opt.state_dict()
+    state_bytes = sum(v.numel() * v.element_size()
+                      for s in state["state"].values() for v in s.values()
+                      if isinstance(v, torch.Tensor))
+
+    def same_state(got):
+        return got["param_groups"] == state["param_groups"] and all(
+            torch.equal(got["state"][i][k], v)
+            for i, s in state["state"].items() for k, v in s.items())
+    report("broadcast_object",
+           lambda: out.__setitem__("o", hvd.broadcast_object(state, 0)),
+           state_bytes, lambda: same_state(out["o"]), reps=1,
+           object="optimizer.state_dict()")
+    report("allgather_object",
+           lambda: out.__setitem__("o", hvd.allgather_object(state)),
+           state_bytes,
+           lambda: len(out["o"]) == 1 and same_state(out["o"][0]), reps=1,
+           object="optimizer.state_dict()")
+    out.clear()
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(BATCH * 2048, 768, generator=gen, device="cuda")
+    dy = torch.randn(BATCH * 2048, 768, generator=gen, device="cuda")
+    sync_bn = hvd.SyncBatchNorm(768).cuda()
+    plain_bn = torch.nn.BatchNorm1d(768).cuda()
+
+    def fwd_bwd(bn):
+        xx = x.clone().requires_grad_()
+        y = bn(xx)
+        (y * dy).sum().backward()
+        return y, xx.grad
+    plain_ms = timed_ms(torch, lambda: fwd_bwd(plain_bn), COLLECTIVE_REPS)
+
+    def sync_bn_agrees():
+        (y, gx), (ry, rgx) = fwd_bwd(sync_bn), fwd_bwd(plain_bn)
+        out["bn_err"] = max((y - ry).abs().max().item(),
+                            (gx - rgx).abs().max().item())
+        return out["bn_err"] <= TOL_SYNC_BN
+    report("SyncBatchNorm.forward_backward", lambda: fwd_bwd(sync_bn),
+           2 * x.numel() * x.element_size(), sync_bn_agrees,
+           shape=list(x.shape), plain_batch_norm_ms=plain_ms,
+           tol=TOL_SYNC_BN)
+    emit({"phase": "collectives_sync_bn_error",
+          "max_abs_err_out_and_dx": out["bn_err"]})
+
+    # join last: afterwards this process contributes zeros to reductions
+    def join_checks():
+        probe = flat[0][:8]
+        return (out["round_before"] == 1 and out["last"] == 0
+                and hvd.joined() and hvd.join_round() == 0
+                and torch.equal(hvd.allreduce(probe, op=hvd.Sum),
+                                torch.zeros_like(probe)))
+    out["round_before"] = hvd.join_round()
+    report("join", lambda: out.__setitem__("last", hvd.join()), 8,
+           join_checks, reps=1)
 
 
 def main() -> int:
@@ -490,16 +703,18 @@ def main() -> int:
     row = kernel_timing(torch, fa, main_case)
     gradient_check(torch, fa)
 
-    hvd.init()
+    hvd.init(process_sets=[[0]])
     small_training_reference(torch, hvd)
     cfg = TransformerConfig()
     data = torch.randint(0, cfg.vocab_size, (BATCH, cfg.max_seq_len + 1),
                          generator=torch.Generator(device="cuda")
                          .manual_seed(1), device="cuda")
     tokens, targets = data[:, :-1], data[:, 1:]
-    row["launches"], losses = train_main_path(torch, hvd, fa, collectives,
-                                              cfg, tokens, targets)
+    row["launches"], losses, bundle = train_main_path(
+        torch, hvd, fa, collectives, cfg, tokens, targets)
     train_default_reference(torch, cfg, tokens, targets, losses)
+    # last: its join() leaves this process contributing zeros
+    collectives_phase(torch, hvd, collectives, bundle)
     hvd.shutdown()
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -20,13 +20,22 @@ Quick start (data-parallel)::
 __version__ = "0.1.0"
 
 from .basics import (  # noqa: F401
-    init, shutdown, is_initialized, rank, size, local_rank, local_size,
-    device,
+    init, shutdown, is_initialized,
+    rank, size, local_rank, local_size, cross_rank, cross_size,
+    device_count, local_device_count, dp_size, is_homogeneous,
+    process_set_mesh, hostname, device,
+    xla_built, tpu_available, mpi_built, mpi_enabled, gloo_built,
+    nccl_built, ccl_built, ddl_built, cuda_built, rocm_built,
+    mpi_threads_supported,
 )
 from .collectives import (  # noqa: F401
-    ReduceOp, Average, Sum,
+    ReduceOp, Average, Sum, Adasum, Min, Max, Product,
     allreduce, allreduce_async, grouped_allreduce, grouped_allreduce_async,
-    broadcast, broadcast_, poll, synchronize, barrier,
+    allgather, allgather_async,
+    broadcast, broadcast_async, broadcast_,
+    grouped_broadcast, grouped_broadcast_async,
+    alltoall, alltoall_async,
+    poll, synchronize, release, join, join_round, joined, barrier,
 )
 from .compression import Compression  # noqa: F401
 from .exceptions import (  # noqa: F401
@@ -35,5 +44,11 @@ from .exceptions import (  # noqa: F401
 )
 from .functions import (  # noqa: F401
     broadcast_parameters, broadcast_optimizer_state,
+    broadcast_object, allgather_object,
 )
 from .optimizer import DistributedOptimizer  # noqa: F401
+from .sparse import (  # noqa: F401
+    SparseGradient, allreduce_sparse, allreduce_sparse_as_dense,
+    sparse_to_dense,
+)
+from .sync_batch_norm import SyncBatchNorm, sync_batch_norm_stats  # noqa: F401

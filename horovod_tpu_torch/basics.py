@@ -7,16 +7,23 @@ CUDA device, gloo on the CPU. Identity comes from arguments or the same env
 contract as the JAX package — ``HVD_TPU_COORDINATOR_ADDR`` (host:port of
 the rendezvous), ``HVD_TPU_RANK`` and ``HVD_TPU_SIZE``. Without them the
 process is a world of one, rendezvousing with itself on a free localhost
-port.
+port. ``init(process_sets=...)`` makes one process group per set
+(:mod:`.mesh`); the host services — the collective dispatcher thread and
+the stall inspector — start with the world and stop with ``shutdown()``.
 
 The port runs on CUDA unless the caller asks for the CPU
 (``device="cpu"``); with no card and no such request, entry points raise.
+
+Rank semantics follow the reference's one-process-per-GPU model: a
+process drives one device, so ``device_count()`` is the world size and
+``local_device_count()`` is 1. ``init(comm=)`` (an mpi4py communicator)
+is not ported.
 """
 
 import dataclasses
 import socket
 import threading
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -32,9 +39,27 @@ class World:
     backend: str
     rank: int
     size: int
-    #: async collective handles: id -> pending work (collectives.py)
-    handles: Dict[int, Any] = dataclasses.field(default_factory=dict)
-    next_handle: int = 0
+    #: the world's process group (mesh.WorldMesh) and the process sets
+    #: made at init, by index
+    world_mesh: Any = None
+    process_sets: Dict[int, Any] = dataclasses.field(default_factory=dict)
+    #: True once this process has join()ed: it contributes zeros
+    joined: bool = False
+    stall_inspector: Any = None
+    #: the collective dispatcher thread (collectives.py), made on first use
+    dispatcher: Any = None
+    #: host-plane state of collectives.py: the named-tensor table, the
+    #: response cache, the consistency exchange's lock and sequence
+    #: number, the auto-name counter and Join's round logs
+    tensor_table: Any = None
+    response_cache: Any = None
+    consistency_lock: threading.Lock = dataclasses.field(
+        default_factory=threading.Lock)
+    consistency_seq: int = 0
+    name_counter: int = 0
+    join_round_log: List[tuple] = dataclasses.field(default_factory=list)
+    join_last_round: List[tuple] = dataclasses.field(default_factory=list)
+    join_active_rounds: int = 0
     lock: threading.Lock = dataclasses.field(default_factory=threading.Lock)
 
 
@@ -77,13 +102,16 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def init(device=None, coordinator_address: Optional[str] = None,
+def init(process_sets: Optional[Sequence[Sequence[int]]] = None,
+         device=None, coordinator_address: Optional[str] = None,
          num_processes: Optional[int] = None,
          process_id: Optional[int] = None,
          config_overrides: Optional[dict] = None) -> None:
-    """Initialize horovod_tpu_torch: resolve identity, pick the device and
-    create the process group. A second call is a no-op until
-    :func:`shutdown`."""
+    """Initialize horovod_tpu_torch: resolve identity, pick the device,
+    create the process group and one group per entry of
+    ``process_sets`` (lists of ranks; retrieve with
+    :func:`process_set_mesh`), and start the stall inspector. A second
+    call is a no-op until :func:`shutdown`."""
     global _world
     with _lock:
         if _world is not None:
@@ -115,17 +143,34 @@ def init(device=None, coordinator_address: Optional[str] = None,
         kwargs = {"device_id": dev} if dev.type == "cuda" else {}
         dist.init_process_group(backend, init_method=url, world_size=n,
                                 rank=pid, **kwargs)
-        _world = World(config=cfg, device=dev, backend=backend, rank=pid,
-                       size=n)
+        from .mesh import WorldMesh
+        from .response_cache import ResponseCache
+        from .stall import StallInspector
+        from .tensor_table import TensorTable
+        w = World(config=cfg, device=dev, backend=backend, rank=pid, size=n)
+        w.tensor_table = TensorTable(w)
+        w.response_cache = ResponseCache(cfg.get(_config.CACHE_CAPACITY))
+        w.world_mesh = WorldMesh(range(n))
+        # every process makes every set, in list order (dist.new_group is
+        # collective over the whole world)
+        for i, ranks in enumerate(process_sets or ()):
+            w.process_sets[i] = w.world_mesh.subset(list(ranks))
+        w.stall_inspector = StallInspector(w)
+        _world = w
 
 
 def shutdown() -> None:
-    """Tear down the world and its process group. Safe to call twice;
-    init() may be called again after it."""
+    """Stop the dispatcher thread and the stall inspector and tear down
+    the process groups. Safe to call twice; init() may be called again
+    after it."""
     global _world
     with _lock:
-        if _world is None:
+        w = _world
+        if w is None:
             return
+        if w.dispatcher is not None:
+            w.dispatcher.stop()
+        w.stall_inspector.stop()
         _world = None
         dist.destroy_process_group()
 
@@ -161,3 +206,91 @@ def local_size() -> int:
 def device() -> torch.device:
     """The device this process's collectives and training run on."""
     return world().device
+
+
+def cross_rank() -> int:
+    v = world().config.get(_config.CROSS_RANK)
+    return v if v >= 0 else world().rank
+
+
+def cross_size() -> int:
+    v = world().config.get(_config.CROSS_SIZE)
+    return v if v >= 0 else world().size
+
+
+def device_count() -> int:
+    """Devices across the world: one per process."""
+    return world().size
+
+
+def local_device_count() -> int:
+    """Devices this process drives: one."""
+    world()
+    return 1
+
+
+def dp_size() -> int:
+    """Data-parallel width: one device per process, so the world size."""
+    return world().size
+
+
+def is_homogeneous() -> bool:
+    """True when every process drives the same number of devices (one
+    each, always, in this port)."""
+    world()
+    return True
+
+
+def process_set_mesh(i: int):
+    """The process set ``i`` registered at init() (a :class:`WorldMesh`
+    to pass as ``process_set=`` to a collective)."""
+    return world().process_sets[i]
+
+
+def hostname() -> str:
+    return world().config.get(_config.HOSTNAME) or socket.gethostname()
+
+
+# -- capability queries (reference: basics.py:140-215) ------------------------
+def xla_built() -> bool:
+    return False
+
+
+def tpu_available() -> bool:
+    return False
+
+
+def mpi_built() -> bool:
+    return False
+
+
+def mpi_enabled() -> bool:
+    return False
+
+
+def gloo_built() -> bool:
+    return dist.is_gloo_available()
+
+
+def nccl_built() -> bool:
+    return dist.is_nccl_available()
+
+
+def ccl_built() -> bool:
+    return False
+
+
+def ddl_built() -> bool:
+    return False
+
+
+def cuda_built() -> bool:
+    return torch.backends.cuda.is_built()
+
+
+def rocm_built() -> bool:
+    return torch.version.hip is not None
+
+
+def mpi_threads_supported() -> bool:
+    return False

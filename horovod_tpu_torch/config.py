@@ -29,6 +29,10 @@ def _register(name, default, parser, alias=None, help=""):
     return name
 
 
+def _parse_bool(v: str) -> bool:
+    return v.strip().lower() in ("1", "true", "yes", "on")
+
+
 FUSION_THRESHOLD = _register(
     "FUSION_THRESHOLD", 64 * 1024 * 1024, int, alias="HOROVOD_FUSION_THRESHOLD",
     help="Gradient-bucket fusion threshold in bytes (0 disables fusion).")
@@ -39,6 +43,30 @@ LOCAL_SIZE = _register("LOCAL_SIZE", -1, int, alias="HOROVOD_LOCAL_SIZE")
 COORDINATOR_ADDR = _register(
     "COORDINATOR_ADDR", "", str, alias="HOROVOD_GLOO_RENDEZVOUS_ADDR",
     help="host:port of the rendezvous (the torch.distributed TCP store).")
+CROSS_RANK = _register("CROSS_RANK", -1, int, alias="HOROVOD_CROSS_RANK")
+CROSS_SIZE = _register("CROSS_SIZE", -1, int, alias="HOROVOD_CROSS_SIZE")
+HOSTNAME = _register("HOSTNAME", "", str, alias="HOROVOD_HOSTNAME")
+CACHE_CAPACITY = _register(
+    "CACHE_CAPACITY", 1024, int, alias="HOROVOD_CACHE_CAPACITY",
+    help="Capacity of the response cache (consistency-exchange "
+         "fingerprints; 0 disables, reference HOROVOD_CACHE_CAPACITY).")
+STALL_CHECK_DISABLE = _register(
+    "STALL_CHECK_DISABLE", False, _parse_bool,
+    alias="HOROVOD_STALL_CHECK_DISABLE")
+STALL_CHECK_TIME_SECONDS = _register(
+    "STALL_CHECK_TIME_SECONDS", 60.0, float,
+    alias="HOROVOD_STALL_CHECK_TIME_SECONDS")
+STALL_SHUTDOWN_TIME_SECONDS = _register(
+    "STALL_SHUTDOWN_TIME_SECONDS", 0.0, float,
+    alias="HOROVOD_STALL_SHUTDOWN_TIME_SECONDS")
+CHECK_CONSISTENCY = _register(
+    "CHECK_CONSISTENCY", True, _parse_bool,
+    help="Cross-process validation of name/shape/dtype for eager "
+         "collectives; the response cache makes the steady-state cost one "
+         "cached lookup. Set HVD_TPU_CHECK_CONSISTENCY=0 to disable.")
+LOCK_CHECK = _register(
+    "LOCK_CHECK", False, _parse_bool,
+    help="Enable the runtime lock-order sentinel (_locks.py).")
 
 
 class Config:

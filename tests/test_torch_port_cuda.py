@@ -1,4 +1,5 @@
-"""The port's CUDA kernel on the card, against its plain PyTorch version.
+"""The port on the card: its CUDA kernel against its plain PyTorch version,
+and every collective verb on CUDA tensors through NCCL in a world of one.
 
 Marked ``cuda``: every test skips on a machine without an NVIDIA GPU (the
 CPU suite). On the card, from the root of a checkout:
@@ -10,13 +11,16 @@ not use.) Tolerances are chip_smoke.py's, and so is the check of a bf16 or
 fp16 output: fp32 outputs within 1e-5 (order of fp32 sums only); bf16 and
 fp16 outputs within a per-element bound of one output rounding plus one
 rounding step of P, with at most 5% of the elements differing at all;
-lse within 1e-4.
+lse within 1e-4. The verbs are exact at size 1 (integer-valued data and
+power-of-two scales); SyncBatchNorm is held to nn.BatchNorm within 1e-5.
 """
 
 import pytest
 import torch
 
+import horovod_tpu_torch as hvd
 from chip_smoke import MISMATCH_LIMIT, TOL_FP32, TOL_LSE, half_agreement
+from horovod_tpu_torch import collectives as tcoll
 from horovod_tpu_torch.ops import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
@@ -129,3 +133,110 @@ def test_autograd_function_on_the_card(cuda):
         return qq.grad, kk.grad, vv.grad
     for a, b in zip(grads(True), grads(False)):
         assert (a - b).abs().max().item() <= 1e-4
+
+
+# -- the collective verbs on NCCL, world of one --------------------------------
+
+@pytest.fixture
+def nccl(cuda):
+    hvd.init(process_sets=[[0]])
+    try:
+        assert hvd.basics.world().backend == "nccl"
+        yield cuda
+    finally:
+        hvd.shutdown()
+
+
+def _ints(shape, seed, dtype=torch.float32, device="cuda"):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(-4, 5, shape, generator=g, device=device).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_reductions_on_nccl(nccl, dtype):
+    x, y = _ints((257, 3), 1, dtype), _ints((5,), 2, dtype)
+    before = tcoll.COUNTS["allreduce"]
+    for op in (hvd.Min, hvd.Max, hvd.Product):
+        got = hvd.grouped_allreduce([x, y], op=op)
+        assert all(torch.equal(g, w) for g, w in zip(got, (x, y)))
+    for op in (hvd.Sum, hvd.Average, hvd.Adasum):
+        got = hvd.grouped_allreduce([x, y], op=op, prescale_factor=0.5,
+                                    postscale_factor=4.0)
+        assert all(g.dtype == dtype and g.is_cuda and torch.equal(g, 2 * w)
+                   for g, w in zip(got, (x, y)))
+    # Adasum at size 1 only scales: five wire calls for six verbs
+    assert tcoll.COUNTS["allreduce"] == before + 5
+    i = _ints((9,), 3, torch.int32)
+    assert torch.equal(hvd.allreduce(i, op=hvd.Sum), i)
+    ps = hvd.process_set_mesh(0)
+    assert torch.equal(hvd.allreduce(x, op=hvd.Max, process_set=ps), x)
+
+
+def test_data_movement_on_nccl(nccl):
+    x = _ints((300, 7), 4)
+    for t in (x, x.bfloat16(), x[:0], torch.tensor(3.0, device=nccl)):
+        got = hvd.allgather(t)
+        assert got.is_cuda and torch.equal(got, t.reshape(-1, *t.shape[1:])
+                                           if t.dim() else t.reshape(1))
+    assert torch.equal(hvd.alltoall(x, splits=[300]), x)
+    assert torch.equal(hvd.alltoall(x), x)
+    assert torch.equal(hvd.broadcast(x, root_rank=0), x)
+    gb = hvd.grouped_broadcast([x, x.int(), x.half()], root_rank=0)
+    assert torch.equal(gb[1], x.int()) and torch.equal(gb[2], x.half())
+    y = x.t()                       # not contiguous: broadcast through a copy
+    assert hvd.broadcast_(y, root_rank=0) is y and torch.equal(y, x.t())
+    # a CPU tensor in an NCCL world comes back on the CPU
+    assert torch.equal(hvd.allreduce(x.cpu(), op=hvd.Sum), x.cpu())
+
+
+def test_object_verbs_on_nccl(nccl):
+    state = {"t": _ints((1000,), 5), "step": 7}
+    got = hvd.broadcast_object(state, root_rank=0)
+    assert got["step"] == 7 and got["t"].is_cuda
+    assert torch.equal(got["t"], state["t"])
+    (only,) = hvd.allgather_object(state)
+    assert torch.equal(only["t"], state["t"])
+
+
+def test_join_on_nccl(nccl):
+    x = _ints((4,), 6)
+    assert hvd.join_round() == 1
+    assert hvd.join() == 0 and hvd.join_round() == 0
+    assert torch.equal(hvd.allreduce(x, op=hvd.Sum), torch.zeros_like(x))
+
+
+def test_sync_batch_norm_backward_on_nccl(nccl):
+    g = torch.Generator(device=nccl).manual_seed(7)
+    x = torch.randn(64, 32, 9, generator=g, device=nccl)
+    dy = torch.randn(64, 32, 9, generator=g, device=nccl)
+    bn = hvd.SyncBatchNorm(32).to(nccl)
+    ref = torch.nn.BatchNorm1d(32).to(nccl)
+    xs, xr = x.clone().requires_grad_(), x.clone().requires_grad_()
+    (bn(xs) * dy).sum().backward()
+    out = ref(xr)
+    (out * dy).sum().backward()
+    assert (bn(x) - out).abs().max().item() <= 1e-5
+    assert (xs.grad - xr.grad).abs().max().item() <= 1e-5
+    assert (bn.weight.grad - ref.weight.grad).abs().max().item() <= 1e-3
+
+
+def test_dispatcher_waits_for_the_callers_stream(nccl):
+    """The input is written on a side stream held back by a spin kernel;
+    the result, read on that stream right after synchronize, must see the
+    write (the dispatcher's stream waits for the caller's)."""
+    x = torch.zeros(1 << 22, device=nccl)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(100_000_000)
+        x.fill_(3.0)
+        h = hvd.allreduce_async(x, op=hvd.Sum, name="side.stream")
+        out = hvd.synchronize(h)
+        # .item() copies on the current stream: the side one
+        assert out.sum().item() == 3.0 * (1 << 22)
+        torch.cuda._sleep(100_000_000)
+        x.fill_(5.0)
+        (g,) = hvd.grouped_broadcast([x], root_rank=0)
+        gathered = hvd.allgather(x[:1000])
+        assert g.min().item() == 5.0 and gathered.min().item() == 5.0
