@@ -17,7 +17,16 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
    plain version's, the PyTorch library call's and the bound;
 4. gradient: the flash autograd Function's dq, dk, dv (lse cotangent
    included) against autograd through the plain reference;
-5. train: the full-width default TransformerConfig (111,121,920
+5. ring: ring attention over sp = 4 driven on one card, every ring
+   position in turn (parallel.ring_attention_local: the per-step compute
+   of the process-group version, with the K/V blocks held here), at the
+   default config's attention (B 8, H 12, D 64, bf16, causal) and S 8192,
+   so each step's kernel call is the training shape (BH 96, S 2048, D 64)
+   with nonzero device offsets. Forward and backward are held to one
+   full-sequence flash call at S 8192 and to the plain fp32 attention at
+   B 1; the launches are counted (16 forward, 16 recomputed in backward)
+   and the ring is timed against the single call.
+6. train: the full-width default TransformerConfig (111,121,920
    parameters, bf16 activations) trained for a few steps at batch
    8 x 2048 through hvd.init() (NCCL), broadcast_parameters and
    DistributedOptimizer(AdamW), after a small run that holds the flash
@@ -25,7 +34,7 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
    are reset just before the full-width steps and read just after. Then
    the same full-width steps with the model's default attention, whose
    losses the flash path's must track.
-6. collectives: every collective verb on CUDA tensors through NCCL at
+7. collectives: every collective verb on CUDA tensors through NCCL at
    size 1, at the full-width trainer's sizes (its parameters, its AdamW
    state, its gradient set in the optimizer's 7 buckets): parameter and
    optimizer-state broadcast, grouped allreduce under every op, allgather,
@@ -82,6 +91,25 @@ PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 
 TRAIN_STEPS = 4
 BATCH = 8
+
+# ring phase: sp positions and global sequence length
+RING_SP = 4
+RING_SEQ = 8192
+# ring output (bf16) against one full-sequence flash call, per element:
+#     2 ulp(|full|) + 3 * 2^-8 (P|V|)
+# one output rounding on each side (with room for the fp32 noise); 2^-8
+# (P|V|) for the ring's partial outputs, each rounded to bf16 before the
+# log-sum-exp merge (their merge weights sum to one, and each partial is
+# at most its share of P|V|); and 2^-8 (P|V|) twice for P, which each side
+# rounds to bf16 relative to another running max (per shard in the ring).
+# Against the exact fp32 attention the full call's terms drop out:
+#     2 ulp(|ref|) + 2 * 2^-8 (P|V|).
+RING_P_TERMS_VS_FULL = 3
+RING_P_TERMS_VS_EXACT = 2
+# gradients (bf16 dq, dk, dv; the backward is the fp32 plain version on
+# both sides, fed by bf16 outputs that differ as above): relative L2 error
+# within 2^-7, a few bf16 roundings (2^-8 each) of every element
+TOL_RING_GRAD_REL = 2.0 ** -7
 
 
 def emit(obj):
@@ -324,6 +352,132 @@ def gradient_check(torch, fa):
           "max_abs_err_dq_dk_dv": errs, "tol": TOL_GRAD, "ok": ok})
     if not ok:
         raise AssertionError("flash gradients disagree with the reference")
+
+
+def ring_phase(torch, fa):
+    """Ring attention at sp = RING_SP on one card: every position's
+    per-step compute in turn, counted, checked and timed."""
+    import importlib
+    ra = importlib.import_module("horovod_tpu_torch.parallel.ring_attention")
+    n, S = RING_SP, RING_SEQ
+    sl = S // n
+    heads, d = 12, 64
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    q, k, v, g = (torch.randn(BATCH, S, heads, d, generator=gen,
+                              device="cuda").to(torch.bfloat16)
+                  for _ in range(4))
+
+    def split(x):
+        return [x[:, j * sl:(j + 1) * sl] for j in range(n)]
+
+    def ring(qq, kk, vv):
+        kv = list(zip(split(kk), split(vv)))
+        return torch.cat([ra.ring_attention_local(qb, kv, j, causal=True)
+                          for j, qb in enumerate(split(qq))], dim=1)
+
+    def run(fn):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves)
+        out.backward(g)
+        return out.detach(), [t.grad for t in leaves]
+
+    # the path: counts set to 0 just before, read just after
+    torch.cuda.synchronize()
+    fa.LAUNCHES["flash_fwd"] = 0
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = ring(*leaves)
+    fwd_launches = fa.LAUNCHES["flash_fwd"]
+    out.backward(g)
+    torch.cuda.synchronize()
+    launches = fa.LAUNCHES["flash_fwd"]
+    ring_out, ring_grads = out.detach(), [t.grad for t in leaves]
+    del out, leaves
+
+    def to_bh(x):
+        return x.transpose(1, 2).reshape(BATCH * heads, x.shape[1], d)
+
+    def ulp(x):
+        _, e = torch.frexp(x.abs().clamp_min(torch.finfo(torch.bfloat16)
+                                             .tiny))
+        return torch.ldexp(torch.ones_like(x), e - 8)
+
+    pv, _ = fa.flash_fwd_plain(to_bh(q), to_bh(k), to_bh(v).abs(), 0, 0,
+                               True, block_k=fa.KEY_TILE)
+    pv = pv.float().reshape(BATCH, heads, S, d).transpose(1, 2)
+    full_out, full_grads = run(lambda a, b, c: fa.flash_attention(
+        a, b, c, causal=True))
+    diff = (ring_out.float() - full_out.float()).abs()
+    ratio_full = (diff / (2 * ulp(full_out.float())
+                          + RING_P_TERMS_VS_FULL * 2.0 ** -8 * pv)).max()
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+    grad_rel_full = [rel(a, b) for a, b in zip(ring_grads, full_grads)]
+    del full_out, full_grads
+
+    # the plain fp32 attention at B 1 (a dense 8192^2 score tensor a head)
+    one = [t[:1].detach().float().requires_grad_() for t in (q, k, v)]
+    ref = fa.mha_reference(*one, causal=True)
+    ref.backward(g[:1].float())
+    ref = ref.detach()
+    ratio_exact = ((ring_out[:1].float() - ref).abs()
+                   / (2 * ulp(ref) + RING_P_TERMS_VS_EXACT * 2.0 ** -8
+                      * pv[:1])).max()
+    grad_rel_exact = [rel(a[:1], b.grad) for a, b in zip(ring_grads, one)]
+    del one, ref, pv, ring_grads
+
+    # times: the ring (all positions, one card) against the single call
+    with torch.no_grad():
+        ring_fwd_ms = cuda_ms(lambda: ring(q, k, v), 3)
+        full_fwd_ms = cuda_ms(lambda: fa.flash_attention(q, k, v,
+                                                         causal=True), 5)
+        qs, ks, vs = (to_bh(x[:, :sl].contiguous()) for x in (q, k, v))
+        kernel_ms = {name: cuda_ms(lambda qo=qo, ko=ko: fa.flash_fwd_cuda(
+            qs, ks, vs, fa.offset_tensor(qo, q.device),
+            fa.offset_tensor(ko, q.device), True), 10)
+            for name, qo, ko in (("diagonal", 0, 0), ("past", sl, 0),
+                                 ("future_masked", 0, sl))}
+        o0 = torch.zeros(BATCH, sl, heads, d, dtype=torch.float32,
+                         device="cuda")
+        lse0 = torch.full((BATCH, sl, heads), ra.NEG_INF,
+                          dtype=torch.float32, device="cuda")
+        step_ms = cuda_ms(lambda: ra._flash_step(
+            q[:, sl:2 * sl], k[:, :sl], v[:, :sl], o0, lse0,
+            fa.offset_tensor(sl, q.device), fa.offset_tensor(0, q.device),
+            True), 10)
+    ring_fb_ms = cuda_ms(lambda: run(ring), 2, warmup=1)
+    full_fb_ms = cuda_ms(lambda: run(lambda a, b, c: fa.flash_attention(
+        a, b, c, causal=True)), 2, warmup=1)
+
+    want = n * n
+    ok = (fwd_launches == want and launches - fwd_launches == want
+          and ratio_full.item() <= 1 and ratio_exact.item() <= 1
+          and max(grad_rel_full + grad_rel_exact) <= TOL_RING_GRAD_REL
+          and bool(torch.isfinite(ring_out.float()).all()))
+    result = {
+        "phase": "ring", "sp": n, "seq": S, "batch": BATCH, "heads": heads,
+        "head_dim": d, "dtype": "bfloat16", "causal": True,
+        "kernel_call_shape": [BATCH * heads, sl, sl, d],
+        "launches_forward": fwd_launches,
+        "launches_backward_recompute": launches - fwd_launches,
+        "launches_expected_each": want,
+        "max_over_bound_vs_full_call": ratio_full.item(),
+        "max_over_bound_vs_exact_b1": ratio_exact.item(),
+        "bound_p_terms": [RING_P_TERMS_VS_FULL, RING_P_TERMS_VS_EXACT],
+        "grad_rel_l2_vs_full_call_dq_dk_dv": grad_rel_full,
+        "grad_rel_l2_vs_exact_b1_dq_dk_dv": grad_rel_exact,
+        "tol_grad_rel": TOL_RING_GRAD_REL,
+        "ring_forward_ms": ring_fwd_ms, "full_call_forward_ms": full_fwd_ms,
+        "ring_forward_backward_ms": ring_fb_ms,
+        "full_call_forward_backward_ms": full_fb_ms,
+        "ring_step_ms": step_ms, "step_kernel_ms": kernel_ms, "ok": ok}
+    emit(result)
+    del q, k, v, g, ring_out
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("ring attention disagrees, or its launches "
+                             "are not the expected count")
+    return launches
 
 
 def small_training_reference(torch, hvd):
@@ -702,6 +856,7 @@ def main() -> int:
     main_case = kernel_cases(torch, fa)
     row = kernel_timing(torch, fa, main_case)
     gradient_check(torch, fa)
+    ring_launches = ring_phase(torch, fa)
 
     hvd.init(process_sets=[[0]])
     small_training_reference(torch, hvd)
@@ -719,7 +874,9 @@ def main() -> int:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{key: row[key] for key in keys}]})
+    emit({"kernels": [{**{key: row[key] for key in keys},
+                       "launches_by_path": {"train": row["launches"],
+                                            "ring": ring_launches}}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

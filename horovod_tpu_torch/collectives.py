@@ -339,6 +339,38 @@ def _dispatcher(w) -> _Dispatcher:
         return w.dispatcher
 
 
+def run_in_order(fn, inputs=(), outputs=()):
+    """Run ``fn``, wire calls on any process group, on the dispatcher
+    thread, in this process's single order of wire calls, and return its
+    result. ``inputs`` are the tensors it reads and ``outputs`` those it
+    writes, allocated by the caller: the dispatcher's stream waits for the
+    caller's, and the caller's for the result.
+
+    The parallel package sends, receives and reduces through here, so
+    that its wire calls and the gradient buckets reach NCCL from one
+    thread in program order, the same order on every rank. Made from the
+    backward's thread instead, beside the dispatcher's buckets, the ring
+    hangs in its first step on NCCL at 2 and 4 ranks
+    (``tests/test_torch_port_parallel_cuda.py order-probe``): every
+    dispatcher blocks reading a bucket's consistency all-gather, which
+    one rank never issues because its backward thread is blocked in a
+    ring send whose peer's backward thread has stopped short of it."""
+    w = _world()
+    order = _stream_order(w)
+
+    def run():
+        if order is not None:
+            order.enter(list(inputs) + list(outputs))
+        out = fn()
+        if order is not None:
+            order.leave()
+        return out
+    out = _dispatcher(w).run_sync(run)
+    if order is not None:
+        order.land(outputs)
+    return out
+
+
 def _submit(w, h: Handle, inputs, check, run) -> int:
     """Hand a verb to the dispatcher: ``check`` (the consistency
     exchange) runs first, then the dispatcher's stream waits for the

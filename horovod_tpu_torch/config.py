@@ -67,6 +67,15 @@ CHECK_CONSISTENCY = _register(
 LOCK_CHECK = _register(
     "LOCK_CHECK", False, _parse_bool,
     help="Enable the runtime lock-order sentinel (_locks.py).")
+MESH_RESHAPE_POLICY = _register(
+    "MESH_RESHAPE_POLICY", "shrink", str,
+    help="How parallel.mesh_utils.plan_reshape re-forms the mesh when the "
+         "survivor count changes: 'shrink' (default) shrinks dp first, then "
+         "fsdp, never the inner pp/ep/sp/tp axes, and raises MeshShapeError "
+         "when survivors don't divide into whole inner groups; 'degrade' "
+         "additionally drops a remainder (whole dp replica groups' worth "
+         "of capacity idles) instead of aborting; 'strict' refuses any "
+         "shape change (a lost host fails the job).")
 
 
 class Config:

@@ -66,3 +66,28 @@ def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
         raise ValueError("flax leaf shapes do not match: " + "; ".join(wrong))
     return {name: torch.from_numpy(np.array(flat[name], dtype=np.float32))
             for name in expected}
+
+
+def moe_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """``parallel.moe.MoEMlp`` parameters (fp32 CPU tensors) from the JAX
+    package's ``MoEMlp.init`` dict of arrays: ``gate_w`` (D, E), ``w_in``
+    (E, D, Hd), ``w_out`` (E, Hd, D). Names must match exactly and the
+    shapes must agree on D, E and Hd, or ValueError is raised."""
+    names = ("gate_w", "w_in", "w_out")
+    if set(tree) != set(names):
+        raise ValueError(f"MoE tree has leaves {sorted(tree)}, expected "
+                         f"{list(names)}")
+    shapes = {n: tuple(np.shape(tree[n])) for n in names}
+    if len(shapes["gate_w"]) != 2:
+        raise ValueError(f"gate_w must be (D, E), got {shapes['gate_w']}")
+    D, E = shapes["gate_w"]
+    if len(shapes["w_in"]) != 3:
+        raise ValueError(f"w_in must be (E, D, Hd), got {shapes['w_in']}")
+    Hd = shapes["w_in"][2]
+    want = {"gate_w": (D, E), "w_in": (E, D, Hd), "w_out": (E, Hd, D)}
+    wrong = [f"{n}: {shapes[n]} != {want[n]}" for n in names
+             if shapes[n] != want[n]]
+    if wrong:
+        raise ValueError("MoE leaf shapes do not agree: " + "; ".join(wrong))
+    return {n: torch.from_numpy(np.array(tree[n], dtype=np.float32))
+            for n in names}

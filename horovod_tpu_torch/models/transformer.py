@@ -155,11 +155,18 @@ class Transformer(nn.Module):
         return [getattr(self, f"layer_{i}")
                 for i in range(self.cfg.num_layers)]
 
-    def forward(self, tokens):
+    def forward(self, tokens, pos_offset: int = 0):
+        """``pos_offset``: the global position of ``tokens``' first column.
+        A sequence shard (sp index i of shards of length S) passes i * S,
+        so its rows get the positions they have in the full sequence."""
         cfg = self.cfg
         B, S = tokens.shape
         dt = cfg.dtype
-        x = self.embedding.to(dt)[tokens] + self.pos_embedding.to(dt)[None, :S]
+        if not 0 <= pos_offset <= cfg.max_seq_len - S:
+            raise ValueError(f"positions [{pos_offset}, {pos_offset + S}) "
+                             f"exceed max_seq_len {cfg.max_seq_len}")
+        pos = self.pos_embedding.to(dt)[pos_offset:pos_offset + S]
+        x = self.embedding.to(dt)[tokens] + pos[None]
         mask = torch.ones(S, S, dtype=torch.bool,
                           device=tokens.device).tril()[None, None]
         for layer in self.layers():

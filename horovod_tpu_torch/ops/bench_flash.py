@@ -71,8 +71,8 @@ def launch(fn, q, k, v, q_off, k_off, causal):
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[0], q.shape[1], dtype=torch.float32,
                       device=q.device)
-    qo = fa._offset_tensor(q_off, q.device)
-    ko = fa._offset_tensor(k_off, q.device)
+    qo = fa.offset_tensor(q_off, q.device)
+    ko = fa.offset_tensor(k_off, q.device)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              lse.data_ptr(), qo.data_ptr(), ko.data_ptr(), q.shape[0],
              q.shape[1], k.shape[1], q.shape[2], fa._DTYPE_CODES[q.dtype],

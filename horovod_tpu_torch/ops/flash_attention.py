@@ -132,7 +132,9 @@ def _load_kernel():
     return _kernel
 
 
-def _offset_tensor(off, device):
+def offset_tensor(off, device):
+    """An offset as the kernel reads it: one int32 on ``device``. An int
+    gives a tensor cached per (device, value); a tensor is checked."""
     if isinstance(off, torch.Tensor):
         if off.dtype != torch.int32 or off.numel() != 1 \
                 or off.device != device:
@@ -180,8 +182,8 @@ def flash_fwd_cuda(q, k, v, q_offset=0, k_offset=0, causal: bool = True,
         # the bf16/fp16 kernel takes each row's max on the raw scores
         raise ValueError(f"flash_fwd_cuda: sm_scale must be positive and "
                          f"finite, got {sm_scale}")
-    qo = _offset_tensor(q_offset, q.device)
-    ko = _offset_tensor(k_offset, q.device)
+    qo = offset_tensor(q_offset, q.device)
+    ko = offset_tensor(k_offset, q.device)
     kernel = _load_kernel()
     out = torch.empty_like(q)
     lse = torch.empty(BH, SQ, dtype=torch.float32, device=q.device)

@@ -104,6 +104,15 @@ def test_kernel_path_has_no_fallback():
         assert "scaled_dot_product_attention" not in open(path).read(), path
 
 
+def test_sequence_parallel_attention_has_no_fallback():
+    """Ring attention, Ulysses and their send/recv catch nothing: on a
+    CUDA tensor each step launches the kernel or raises."""
+    for name in ("ring_attention", "ulysses", "comm"):
+        path = os.path.join(PKG, "parallel", f"{name}.py")
+        tree = ast.parse(open(path).read(), path)
+        assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+
+
 def test_cuda_source_and_build_recipe():
     from horovod_tpu_torch.ops import _build
     for name, src in _build.SOURCES.items():

@@ -241,6 +241,32 @@ def test_remat_recomputes_the_same_gradients():
         assert torch.equal(g, grads[1][name]), name
 
 
+def test_sequence_shard_positions_match_full_forward():
+    """A sequence shard run with its offset (sp index x shard length) sees
+    the same activations before attention as the matching rows of the
+    full forward; without the offset it would not."""
+    _, params = _jax_model(jnp.float32, flash=False)
+    model = _torch_model(params, torch.float32, flash=False)
+    seen = []
+    model.layer_0.ln1.register_forward_hook(
+        lambda mod, args, out: seen.append(args[0]))
+    toks = torch.from_numpy(_tokens(4)[:, :-1].astype(np.int64))
+    S, shards = TINY["max_seq_len"], 4
+    s = S // shards
+    with torch.no_grad():
+        model(toks)
+        full = seen.pop()
+        for i in range(shards):
+            model(toks[:, i * s:(i + 1) * s], pos_offset=i * s)
+            torch.testing.assert_close(seen.pop(),
+                                       full[:, i * s:(i + 1) * s],
+                                       rtol=0, atol=0)
+        model(toks[:, s:2 * s])
+        assert not torch.equal(seen.pop(), full[:, s:2 * s])
+        with pytest.raises(ValueError, match="max_seq_len"):
+            model(toks[:, :2 * s], pos_offset=S - s)
+
+
 def test_config_replace_keeps_defaults():
     cfg = dataclasses.replace(TransformerConfig(), num_layers=1)
     assert (cfg.vocab_size, cfg.d_model, cfg.num_heads, cfg.head_dim,
