@@ -26,7 +26,17 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
    full-sequence flash call at S 8192 and to the plain fp32 attention at
    B 1; the launches are counted (16 forward, 16 recomputed in backward)
    and the ring is timed against the single call.
-6. train: the full-width default TransformerConfig (111,121,920
+6. tensor_parallel: the full-width default model's decoder layer 0 split
+   into tp = 4 blocks (parallel.mesh_utils.tensor_parallel_blocks and
+   tensor_parallel_local: each
+   block's attention over 3 of the 12 heads and its MLP over 768 of the
+   3072 columns run in turn on the card, the partial outputs summed in
+   bf16 as the tp group's sum does), B 8, S 2048, so each block's flash
+   call is at BH 24, S 2048, D 64, bf16, causal. Held to the unsplit
+   layer (relative L2), 4 launches counted, and the kernel at BH 24 held
+   to its plain version and timed against the BH-96 call, its plain
+   version, SDPA and its bound.
+7. train: the full-width default TransformerConfig (111,121,920
    parameters, bf16 activations) trained for a few steps at batch
    8 x 2048 through hvd.init() (NCCL), broadcast_parameters and
    DistributedOptimizer(AdamW), after a small run that holds the flash
@@ -34,7 +44,15 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
    are reset just before the full-width steps and read just after. Then
    the same full-width steps with the model's default attention, whose
    losses the flash path's must track.
-7. collectives: every collective verb on CUDA tensors through NCCL at
+8. checkpoint: the trained bundle's state (444.5 MB of parameters, 889 MB
+   of AdamW state) saved through the port's CheckpointManager under
+   build/, once synchronously and once asynchronously; 2 more steps,
+   restore, the same 2 steps again: losses and parameters bit-identical
+   (torch.equal). A planted bad shard must raise IntegrityError, and a
+   restore with fallback must then land on the previous step. Prints the
+   sync save's ms and GB/s, the async save's on-thread snapshot ms, and
+   the restore's ms and GB/s.
+9. collectives: every collective verb on CUDA tensors through NCCL at
    size 1, at the full-width trainer's sizes (its parameters, its AdamW
    state, its gradient set in the optimizer's 7 buckets): parameter and
    optimizer-state broadcast, grouped allreduce under every op, allgather,
@@ -110,6 +128,15 @@ RING_P_TERMS_VS_EXACT = 2
 # both sides, fed by bf16 outputs that differ as above): relative L2 error
 # within 2^-7, a few bf16 roundings (2^-8 each) of every element
 TOL_RING_GRAD_REL = 2.0 ** -7
+
+# tensor_parallel phase: tp blocks of decoder layer 0. The split layer's
+# output (bf16) against the unsplit layer's: each block's products are
+# rounded to bf16 before the tp sum, which adds in bf16 (a rounding per
+# add), and the q/k/v and MLP products run at a quarter of the width, so
+# every element carries a few more bf16 roundings (2^-8 each) than the
+# unsplit layer's: relative L2 within 2^-7, as the ring's gradients.
+TP = 4
+TOL_TP_REL = 2.0 ** -7
 
 
 def emit(obj):
@@ -283,6 +310,21 @@ def kernel_cases(torch, fa):
     return main
 
 
+def flash_bound(q, causal):
+    """(bytes, operations, {"bound_ms", "bound_by"}) of one forward call
+    on (BH, S, D) inputs like ``q``: q, k, v read and out written once in
+    their type, the fp32 lse written once; two products over the visible
+    (query, key) pairs at the bf16 peak."""
+    bh, s, d = q.shape
+    nbytes = (4 * q.numel()) * q.element_size() + bh * s * 4
+    flops = 4 * d * bh * visible_pairs(s, s, causal, 0, 0)
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    return nbytes, flops, {
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
 def kernel_timing(torch, fa, main):
     import torch.nn.functional as F
     q, k, v, causal, err = main
@@ -299,17 +341,12 @@ def kernel_timing(torch, fa, main):
     g_lse = torch.zeros_like(lse)
     bwd_plain_ms = cuda_ms(lambda: fa.flash_bwd_plain(
         q, k, v, out, lse, g, g_lse, 0, 0, causal), 3)
-    nbytes = (4 * q.numel()) * q.element_size() + bh * s * 4
-    flops = 4 * d * bh * visible_pairs(s, s, causal, 0, 0)
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    nbytes, flops, bound = flash_bound(q, causal)
     row = {"name": "flash_fwd", "route": "cuda",
            "source": "horovod_tpu_torch/ops/csrc/flash_fwd.cu",
            "replaces": "horovod_tpu/ops/flash_attention.py:83",
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "library_ms": library_ms}
+           **bound, "library_ms": library_ms}
     emit({"phase": "kernel_timing", "kernel": "flash_fwd",
           "shape": [bh, s, s, d], "dtype": str(q.dtype), "bytes": nbytes,
           "flops": flops, "tflops": flops / (ms * 1e-3) / 1e12,
@@ -480,6 +517,86 @@ def ring_phase(torch, fa):
     return launches
 
 
+def flash_timing(torch, fa, bh, s, d, causal=True, plain_iters=3):
+    """The kernel at (bh, s, s, d) bf16 against its plain version (the
+    bf16 limits of the kernel cases), then its ms, the plain version's,
+    SDPA's and the bound (bytes and operations, as kernel_timing)."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v = (torch.randn(bh, s, d, generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    out, _ = fa.flash_fwd_cuda(q, k, v, 0, 0, causal)
+    ref, _ = fa.flash_fwd_plain(q, k, v, 0, 0, causal, block_k=fa.KEY_TILE)
+    ratio, share = half_agreement(torch, fa, out, ref, q, k, v, 0, 0,
+                                  causal)
+    ms = cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, 0, 0, causal), 20)
+    plain_ms = cuda_ms(lambda: fa.flash_fwd_plain(
+        q, k, v, 0, 0, causal, block_k=fa.KEY_TILE), plain_iters)
+    q4, k4, v4 = (t.view(BATCH, bh // BATCH, s, d) for t in (q, k, v))
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=causal), 20)
+    _, flops, bound = flash_bound(q, causal)
+    return {"shape": [bh, s, s, d], "max_abs_err": (
+                out.float() - ref.float()).abs().max().item(),
+            "max_over_bound": ratio, "mismatch_share": share,
+            "agrees": ratio <= 1 and share <= MISMATCH_LIMIT,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            **bound, "tflops": flops / (ms * 1e-3) / 1e12}
+
+
+def tensor_parallel_phase(torch, fa):
+    """Decoder layer 0 of the full-width default model split into TP
+    blocks on one card (see the module docstring)."""
+    import dataclasses
+    from horovod_tpu_torch.models import Transformer, TransformerConfig
+    from horovod_tpu_torch.parallel import flash_attention_fn
+    from horovod_tpu_torch.parallel.mesh_utils import (
+        tensor_parallel_blocks, tensor_parallel_local)
+    cfg = dataclasses.replace(TransformerConfig(), num_layers=1,
+                              attention_fn=flash_attention_fn)
+    layer = Transformer(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(3)).layer_0
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.randn(BATCH, cfg.max_seq_len, cfg.d_model, generator=gen,
+                    device="cuda").to(cfg.dtype)
+    blocks = tensor_parallel_blocks(layer, TP)
+    with torch.no_grad():
+        want = layer(x, None)
+        fa.LAUNCHES["flash_fwd"] = 0
+        got = tensor_parallel_local(layer, blocks, x, None)
+        torch.cuda.synchronize()
+        launches = fa.LAUNCHES["flash_fwd"]
+        diff = (got.float() - want.float())
+        rel = (diff.norm() / want.float().norm()).item()
+        split_ms = cuda_ms(lambda: tensor_parallel_local(
+            layer, blocks, x, None), 5)
+        layer_ms = cuda_ms(lambda: layer(x, None), 5)
+    heads = cfg.num_heads // TP
+    block = flash_timing(torch, fa, BATCH * heads, cfg.max_seq_len,
+                         cfg.head_dim)
+    whole = flash_timing(torch, fa, BATCH * cfg.num_heads, cfg.max_seq_len,
+                         cfg.head_dim)
+    ok = (launches == TP and rel <= TOL_TP_REL and block["agrees"]
+          and bool(torch.isfinite(got.float()).all()))
+    emit({"phase": "tensor_parallel", "tp": TP, "batch": BATCH,
+          "seq": cfg.max_seq_len, "heads_per_block": heads,
+          "mlp_columns_per_block": cfg.d_model * cfg.mlp_ratio // TP,
+          "kernel_call_shape": [BATCH * heads, cfg.max_seq_len,
+                                cfg.max_seq_len, cfg.head_dim],
+          "launches": launches, "launches_expected": TP,
+          "rel_l2_vs_unsplit_layer": rel, "tol_rel_l2": TOL_TP_REL,
+          "max_abs_err_vs_unsplit_layer": diff.abs().max().item(),
+          "split_layer_forward_ms": split_ms,
+          "unsplit_layer_forward_ms": layer_ms,
+          "flash_bh24": block, "flash_bh96": whole, "ok": ok})
+    del layer, blocks, x, want, got, diff
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("the tp-split layer disagrees with the layer, "
+                             "or its launches are not the expected count")
+    return launches, block
+
+
 def small_training_reference(torch, hvd):
     """A small fp32 model trained 3 steps through the flash kernel and
     through the plain attention, from the same weights and data."""
@@ -584,7 +701,6 @@ def train_main_path(torch, hvd, fa, collectives, cfg, tokens, targets):
         "world_size": hvd.size(), "backend": hvd.basics.world().backend}
     emit(result)
     step_breakdown(torch, bundle, tokens, targets)
-    bundle.optimizer.remove_hooks()
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError("non-finite loss")
     if abs(losses[0] - math.log(cfg.vocab_size)) > 1.0:
@@ -620,6 +736,86 @@ def train_default_reference(torch, cfg, tokens, targets, flash_losses):
     if not ok:
         raise AssertionError("full-width flash losses disagree with the "
                              "default attention's")
+
+
+def checkpoint_phase(torch, bundle, tokens, targets):
+    """Save, resume and fall back through the port's CheckpointManager
+    (see the module docstring); the directory is removed afterwards."""
+    import shutil
+    from horovod_tpu_torch import checkpointing as cp
+    from horovod_tpu_torch.checkpointing.snapshot import tree_flatten
+    from horovod_tpu_torch.parallel import (
+        restore_mesh_train_state, save_mesh_train_state, train_state_tree)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_checkpoint")
+    shutil.rmtree(root, ignore_errors=True)
+    mgr = cp.CheckpointManager(root)
+    leaves = [t for _, t in tree_flatten(train_state_tree(bundle))[0]]
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    params = list(bundle.model.parameters())
+    at_save = [p.detach().clone() for p in params]
+
+    def seconds(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    sync_s = seconds(lambda: save_mesh_train_state(mgr, 1, bundle))
+    snapshot_s = seconds(lambda: save_mesh_train_state(mgr, 2, bundle,
+                                                       async_=True))
+    persist_s = seconds(mgr.wait_until_finished)
+
+    def two_steps():
+        return [bundle.step(tokens, targets).item() for _ in range(2)]
+    losses_a = two_steps()
+    params_a = [p.detach().clone() for p in params]
+    restore_s = seconds(lambda: restore_mesh_train_state(mgr, bundle))
+    restored_equal = all(torch.equal(p, q) for p, q in zip(params, at_save))
+    losses_b = two_steps()
+    identical = losses_a == losses_b and all(
+        torch.equal(p, q) for p, q in zip(params, params_a))
+    del params_a
+
+    # a planted bad shard in the newest step: restore must refuse it, and
+    # the fallback must land on the previous step
+    step2 = cp.step_dir(root, 2)
+    shard = max((os.path.join(step2, "shards", f)
+                 for f in os.listdir(os.path.join(step2, "shards"))),
+                key=os.path.getsize)
+    at = os.path.getsize(shard) // 2
+    with open(shard, "r+b") as f:
+        f.seek(at)
+        byte = f.read(1)
+        f.seek(at)
+        f.write(bytes([byte[0] ^ 0x55]))
+    try:
+        mgr.restore(step=2, target=train_state_tree(bundle))
+        refused = False
+    except cp.IntegrityError:
+        refused = True
+    restore_mesh_train_state(mgr, bundle)
+    fell_back = mgr.all_steps() == [1] and all(
+        torch.equal(p, q) for p, q in zip(params, at_save))
+    shutil.rmtree(root, ignore_errors=True)
+    ok = restored_equal and identical and refused and fell_back
+    gb = nbytes / 1e9
+    emit({"phase": "checkpoint", "state_bytes": nbytes,
+          "leaves": len(leaves), "sync_save_ms": sync_s * 1e3,
+          "sync_save_gb_per_s": gb / sync_s,
+          "async_save_snapshot_ms": snapshot_s * 1e3,
+          "async_save_persist_wait_ms": persist_s * 1e3,
+          "restore_ms": restore_s * 1e3,
+          "restore_gb_per_s": gb / restore_s,
+          "losses_before_restore": losses_a,
+          "losses_after_restore": losses_b,
+          "restored_state_equal": restored_equal,
+          "resumed_steps_bit_identical": identical,
+          "bad_shard_refused": refused,
+          "fallback_restored_previous_step": fell_back, "ok": ok})
+    if not ok:
+        raise AssertionError("checkpoint save/restore is not bit-exact, or "
+                             "a bad shard was not caught")
 
 
 COLLECTIVES_NOTE = ("NCCL at size 1 is a device copy: these are the port's "
@@ -857,6 +1053,7 @@ def main() -> int:
     row = kernel_timing(torch, fa, main_case)
     gradient_check(torch, fa)
     ring_launches = ring_phase(torch, fa)
+    tp_launches, tp_row = tensor_parallel_phase(torch, fa)
 
     hvd.init(process_sets=[[0]])
     small_training_reference(torch, hvd)
@@ -868,6 +1065,8 @@ def main() -> int:
     row["launches"], losses, bundle = train_main_path(
         torch, hvd, fa, collectives, cfg, tokens, targets)
     train_default_reference(torch, cfg, tokens, targets, losses)
+    checkpoint_phase(torch, bundle, tokens, targets)
+    bundle.optimizer.remove_hooks()
     # last: its join() leaves this process contributing zeros
     collectives_phase(torch, hvd, collectives, bundle)
     hvd.shutdown()
@@ -876,7 +1075,12 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{**{key: row[key] for key in keys},
                        "launches_by_path": {"train": row["launches"],
-                                            "ring": ring_launches}}]})
+                                            "ring": ring_launches,
+                                            "tensor_parallel": tp_launches},
+                       "tensor_parallel_bh24": {
+                           key: tp_row[key] for key in (
+                               "ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms", "max_abs_err")}}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -117,6 +117,9 @@ def init(process_sets: Optional[Sequence[Sequence[int]]] = None,
         if _world is not None:
             return
         cfg = _config.Config(config_overrides)
+        # a malformed HVD_TPU_FAULT_SPEC fails here, not mid-training
+        from . import faults
+        faults.ensure_configured()
         dev = resolve_device(device, cfg)
         if dev.type == "meta":
             raise ValueError("init() needs a real device, not meta")

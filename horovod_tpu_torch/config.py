@@ -77,6 +77,41 @@ MESH_RESHAPE_POLICY = _register(
          "of capacity idles) instead of aborting; 'strict' refuses any "
          "shape change (a lost host fails the job).")
 
+INIT_TIMEOUT_SECONDS = _register(
+    "INIT_TIMEOUT_SECONDS", 300.0, float,
+    alias="HOROVOD_GLOO_TIMEOUT_SECONDS",
+    help="Timeout for distributed initialization / re-rendezvous.")
+FAULT_SPEC = _register(
+    "FAULT_SPEC", "", str,
+    help="Deterministic fault-injection spec, ';'-separated "
+         "site:kind[:param=value...] entries (e.g. "
+         "'rendezvous.get:error:rate=0.3;worker.step:crash:step=12'). "
+         "Empty (default) disables injection entirely; see "
+         "docs/robustness.md for the grammar.")
+FAULT_SEED = _register(
+    "FAULT_SEED", 0, int,
+    help="Seed for every probabilistic fault-injection decision. The same "
+         "seed + spec + call sequence reproduces the same faults on every "
+         "run and every process.")
+CHECKPOINT_MAX_INFLIGHT = _register(
+    "CHECKPOINT_MAX_INFLIGHT", 2, int,
+    help="Bound on async checkpoint saves snapshotted but not yet "
+         "persisted. A training loop that outruns storage blocks in "
+         "save() once the queue is full (backpressure) instead of "
+         "accumulating unbounded host-RAM copies of the model.")
+CHECKPOINT_KEEP = _register(
+    "CHECKPOINT_KEEP", 0, int,
+    help="Retention GC: keep the last N completed checkpoint steps, "
+         "deleting superseded ones from the background writer after "
+         "each commit. 0 (default) keeps everything. Composes with "
+         "HVD_TPU_CHECKPOINT_KEEP_PERIOD (a step survives if either "
+         "rule wants it); the newest step always survives.")
+CHECKPOINT_KEEP_PERIOD = _register(
+    "CHECKPOINT_KEEP_PERIOD", 0, int,
+    help="Retention GC: steps divisible by this period are kept forever "
+         "(milestone checkpoints for offline eval), regardless of "
+         "HVD_TPU_CHECKPOINT_KEEP. 0 (default) disables the rule.")
+
 
 class Config:
     """Resolves knob values: programmatic override > env(HVD_TPU_) >
@@ -102,3 +137,13 @@ class Config:
         except (TypeError, ValueError):
             return knob.default
 
+
+
+def live_config() -> "Config":
+    """The initialized world's Config (programmatic overrides included),
+    falling back to an env-only view, so a subsystem reading knobs outside
+    ``init()`` sees the same values as one inside it."""
+    from . import basics
+    if basics.is_initialized():
+        return basics.world().config
+    return Config()

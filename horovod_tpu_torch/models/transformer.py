@@ -16,10 +16,24 @@ Causal attention runs through ``cfg.attention_fn`` (``(q, k, v, mask,
 dtype) -> out`` on (B, S, H, D)); the default is :func:`_default_attention`,
 plain softmax attention. The training step injects the flash kernel there
 (parallel/train.py). The paged KV-cache path is not ported yet.
+
+Sharded (``Transformer.shard_``, the training mesh's tp and fsdp): every
+parameter keeps only this process's block, by the logical axes of
+:func:`logical_axes` and ``parallel.mesh_utils.TRANSFORMER_RULES`` (vocab,
+heads and mlp over tp, embed over fsdp). Each fsdp-sharded weight is
+all-gathered over fsdp just before its use (its gradient reduce-scattered
+back in backward); attention runs on this process's H/tp heads and the MLP
+on its hidden/tp columns, and their output projections are summed over tp
+in the activation dtype. The embedding lookup is vocab-parallel, and the
+forward returns the logits of this process's vocab block, (B, S,
+vocab/tp): the loss is the vocab-parallel cross-entropy
+(``MeshSharding.cross_entropy``), which reduces the softmax's max and sum
+over tp instead of gathering the fp32 logits (2.1 GB at full width and
+batch 8 x 2048).
 """
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -57,6 +71,30 @@ def _default_attention(q, k, v, mask, dtype):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def logical_axes(name: str) -> Optional[Tuple[Optional[str], ...]]:
+    """The logical axes of parameter ``name`` (its state_dict key), as the
+    flax module annotates them with ``nn.with_logical_partitioning``
+    (``horovod_tpu/models/transformer.py``); None for the unannotated
+    LayerNorm parameters."""
+    leaf = name.rsplit(".", 2)[-2:]
+    if name == "embedding":
+        return ("vocab", "embed")
+    if name == "pos_embedding":
+        return (None, "embed")
+    if leaf[0] == "attn":
+        return ("heads", "kv", "embed") if leaf[1] == "wo" \
+            else ("embed", "heads", "kv")
+    if leaf[0] == "mlp":
+        return ("embed", "mlp") if leaf[1] == "wi" else ("mlp", "embed")
+    return None
+
+
+def _use(shard, p, dtype):
+    """A weight as a product takes it: gathered over fsdp when sharded,
+    then cast to the activation dtype."""
+    return (p if shard is None else shard.gather(p)).to(dtype)
+
+
 def _normal(shape, device, generator):
     t = torch.empty(shape, dtype=torch.float32, device=device)
     if device.type != "meta":
@@ -84,6 +122,8 @@ class LayerNorm(nn.Module):
 
 
 class Attention(nn.Module):
+    shard = None
+
     def __init__(self, cfg: TransformerConfig, device, generator):
         super().__init__()
         self.cfg = cfg
@@ -94,16 +134,21 @@ class Attention(nn.Module):
         self.wo = _normal((H, D, E), device, generator)
 
     def forward(self, x, mask):
-        dt = self.cfg.dtype
-        q = torch.einsum("bse,ehd->bshd", x, self.wq.to(dt))
-        k = torch.einsum("bse,ehd->bshd", x, self.wk.to(dt))
-        v = torch.einsum("bse,ehd->bshd", x, self.wv.to(dt))
+        dt, sh = self.cfg.dtype, self.shard
+        if sh is not None:
+            x = sh.tp_in(x)
+        q = torch.einsum("bse,ehd->bshd", x, _use(sh, self.wq, dt))
+        k = torch.einsum("bse,ehd->bshd", x, _use(sh, self.wk, dt))
+        v = torch.einsum("bse,ehd->bshd", x, _use(sh, self.wv, dt))
         attn = self.cfg.attention_fn or _default_attention
         out = attn(q, k, v, mask, dt)
-        return torch.einsum("bshd,hde->bse", out, self.wo.to(dt))
+        out = torch.einsum("bshd,hde->bse", out, _use(sh, self.wo, dt))
+        return out if sh is None else sh.tp_out(out)
 
 
 class MlpBlock(nn.Module):
+    shard = None
+
     def __init__(self, cfg: TransformerConfig, device, generator):
         super().__init__()
         self.cfg = cfg
@@ -112,10 +157,13 @@ class MlpBlock(nn.Module):
         self.wo = _normal((hidden, cfg.d_model), device, generator)
 
     def forward(self, x):
-        dt = self.cfg.dtype
-        h = torch.matmul(x, self.wi.to(dt))
+        dt, sh = self.cfg.dtype, self.shard
+        if sh is not None:
+            x = sh.tp_in(x)
+        h = torch.matmul(x, _use(sh, self.wi, dt))
         h = F.gelu(h, approximate="tanh")  # flax nn.gelu is the tanh form
-        return torch.matmul(h, self.wo.to(dt))
+        out = torch.matmul(h, _use(sh, self.wo, dt))
+        return out if sh is None else sh.tp_out(out)
 
 
 class DecoderLayer(nn.Module):
@@ -138,6 +186,8 @@ class Transformer(nn.Module):
     drawn from N(0, 0.02) with ``generator`` (one on that device), in the
     flax module's order; LayerNorm scales start at 1 and biases at 0."""
 
+    shard = None
+
     def __init__(self, cfg: TransformerConfig, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -155,6 +205,22 @@ class Transformer(nn.Module):
         return [getattr(self, f"layer_{i}")
                 for i in range(self.cfg.num_layers)]
 
+    def shard_(self, sharding) -> "Transformer":
+        """Keep only this process's block of every parameter
+        (``sharding.specs[name].index``, a ``parallel.mesh_utils
+        .MeshSharding``) and run the sharded forward from now on. The
+        parameter objects stay the same (their data shrinks), so an
+        optimizer made afterwards holds state for the blocks only."""
+        with torch.no_grad():
+            for name, p in self.named_parameters():
+                p.data = p.data[sharding.specs[name].index].clone(
+                    memory_format=torch.contiguous_format)
+        sharding.bind(self.named_parameters())
+        for m in self.modules():
+            if isinstance(m, (Transformer, Attention, MlpBlock)):
+                m.shard = sharding
+        return self
+
     def forward(self, tokens, pos_offset: int = 0):
         """``pos_offset``: the global position of ``tokens``' first column.
         A sequence shard (sp index i of shards of length S) passes i * S,
@@ -165,8 +231,12 @@ class Transformer(nn.Module):
         if not 0 <= pos_offset <= cfg.max_seq_len - S:
             raise ValueError(f"positions [{pos_offset}, {pos_offset + S}) "
                              f"exceed max_seq_len {cfg.max_seq_len}")
-        pos = self.pos_embedding.to(dt)[pos_offset:pos_offset + S]
-        x = self.embedding.to(dt)[tokens] + pos[None]
+        sh = self.shard
+        pos = _use(sh, self.pos_embedding, dt)[pos_offset:pos_offset + S]
+        if sh is None:
+            x = self.embedding.to(dt)[tokens] + pos[None]
+        else:
+            x = sh.embed(tokens, _use(sh, self.embedding, dt)) + pos[None]
         mask = torch.ones(S, S, dtype=torch.bool,
                           device=tokens.device).tril()[None, None]
         for layer in self.layers():
@@ -175,5 +245,9 @@ class Transformer(nn.Module):
             else:
                 x = layer(x, mask)
         x = self.ln_f(x)
-        # logits in fp32, weight-tied to the embedding
-        return torch.matmul(x.float(), self.embedding.t())
+        # logits in fp32, weight-tied to the embedding (sharded: this
+        # process's vocab block)
+        if sh is None:
+            return torch.matmul(x.float(), self.embedding.t())
+        return torch.matmul(sh.tp_in(x).float(),
+                            sh.gather(self.embedding).t())

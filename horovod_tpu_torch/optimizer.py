@@ -14,6 +14,13 @@ rest of backward; ``step()`` fires what is left, issues one Join round
 marker in a world of more than one process, drains the handles, writes
 the reduced gradients back and calls the wrapped optimizer's step.
 
+``grad_process_sets`` (the sharded training mesh,
+``parallel.mesh_utils.grad_process_sets``) gives a parameter's gradient
+its own process set and scale: it is summed over that set and multiplied
+by the scale, in buckets of its set (a tp-sharded block averages only
+with the processes holding the same block). Without it every gradient
+is averaged over the world.
+
 ``op=Adasum`` in a world of more than one process is the delta optimizer
 (reference: _DistributedAdasumOptimizer, torch/optimizer.py:196-364):
 each process steps the wrapped optimizer locally, the parameter deltas
@@ -41,7 +48,10 @@ class DistributedOptimizer:
     hook raises AssertionError (the JAX package's torch frontend does the
     same). ``gradient_predivide_factor`` splits the Average
     scale into a prescale and a postscale, which this data plane folds
-    into one scalar (numerically neutral, kept for API parity)."""
+    into one scalar (numerically neutral, kept for API parity).
+    ``grad_process_sets``: {parameter name: (process set or None for the
+    world, scale)}, see the module docstring; needs ``named_parameters``
+    and op=Average."""
 
     def __new__(cls, optimizer=None, named_parameters=None, op=_c.Average,
                 *args, **kwargs):
@@ -57,11 +67,16 @@ class DistributedOptimizer:
                  named_parameters=None, op=_c.Average,
                  backward_passes_per_step: int = 1,
                  compression=Compression.none,
-                 gradient_predivide_factor: float = 1.0):
+                 gradient_predivide_factor: float = 1.0,
+                 grad_process_sets=None):
         if gradient_predivide_factor != 1.0 and op != _c.Average:
             raise ValueError(
                 "gradient_predivide_factor only applies to op=Average "
                 "(reference: torch/optimizer.py:395-398)")
+        if grad_process_sets is not None and (
+                op != _c.Average or named_parameters is None):
+            raise ValueError("grad_process_sets needs op=Average and "
+                             "named_parameters")
         self._opt = optimizer
         self._op = op
         self._bpps = backward_passes_per_step
@@ -106,9 +121,26 @@ class DistributedOptimizer:
         self._hooked = hooked
         ordered = list(reversed(hooked))   # approximate readiness order
         threshold = _basics.world().config.get(_config.FUSION_THRESHOLD)
-        buckets = plan_buckets([(tuple(p.shape), p.dtype) for p in ordered],
-                               threshold)
-        self._bucket_members = [[ordered[i] for i in b] for b in buckets]
+        # one reduction (process set, scale) per bucket: without
+        # grad_process_sets every gradient shares the world's
+        reduction = {id(p): (None, 1.0) for p in ordered}
+        if grad_process_sets is not None:
+            reduction.update({id(p): grad_process_sets[self._names[id(p)]]
+                              for p in ordered})
+        kinds = []
+        for p in ordered:
+            if reduction[id(p)] not in kinds:
+                kinds.append(reduction[id(p)])
+        self._bucket_members = []
+        self._bucket_reduction = []
+        for kind in kinds:
+            members = [p for p in ordered if reduction[id(p)] == kind]
+            buckets = plan_buckets(
+                [(tuple(p.shape), p.dtype) for p in members], threshold)
+            self._bucket_members += [[members[i] for i in b]
+                                     for b in buckets]
+            self._bucket_reduction += [kind] * len(buckets)
+        self._sharded = grad_process_sets is not None
         self._bucket_of = {id(p): bi for bi, b in
                            enumerate(self._bucket_members) for p in b}
         # per-step state
@@ -159,13 +191,20 @@ class DistributedOptimizer:
         # gradients together
         digest = zlib.crc32("|".join(
             self._names[id(p)] for p in members).encode()) & 0xFFFFFFFF
-        h = _c.grouped_allreduce_async(
-            [ready[id(p)] for p in members], op=self._op,
-            prescale_factor=self._prescale,
-            postscale_factor=self._postscale,
-            name=f"grad.bucket.{bid}."
-                 f"{len(members)}of{len(self._bucket_members[bid])}"
-                 f".{digest:08x}")
+        name = (f"grad.bucket.{bid}."
+                f"{len(members)}of{len(self._bucket_members[bid])}"
+                f".{digest:08x}")
+        tensors = [ready[id(p)] for p in members]
+        if self._sharded:
+            process_set, scale = self._bucket_reduction[bid]
+            h = _c.grouped_allreduce_async(
+                tensors, op=_c.Sum, prescale_factor=self._prescale,
+                postscale_factor=self._postscale * scale, name=name,
+                process_set=process_set)
+        else:
+            h = _c.grouped_allreduce_async(
+                tensors, op=self._op, prescale_factor=self._prescale,
+                postscale_factor=self._postscale, name=name)
         self._handles.append((h, members))
         self._fired_ids.update(id(p) for p in members)
 

@@ -58,6 +58,9 @@ def test_imports_with_jax_blocked():
         "import horovod_tpu_torch.models, horovod_tpu_torch.parallel\n"
         "import horovod_tpu_torch.ops.flash_attention\n"
         "import horovod_tpu_torch.ops._build\n"
+        "import horovod_tpu_torch.checkpoint, horovod_tpu_torch.faults\n"
+        "import horovod_tpu_torch.checkpointing.manager\n"
+        "import horovod_tpu_torch.metrics, horovod_tpu_torch.callbacks\n"
         "print('imported', len([m for m in sys.modules\n"
         "                       if m.startswith('horovod_tpu_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -121,3 +124,21 @@ def test_cuda_source_and_build_recipe():
     assert os.path.relpath(_build.BUILD_DIR, ROOT) == os.path.join(
         "build", "torch_kernels")
     assert _build.library_path("flash_fwd").startswith(_build.BUILD_DIR)
+
+
+def test_sharded_step_has_no_fallback():
+    """The sharded forward, its collectives and the mesh step catch
+    nothing: a failed gather, sum or kernel launch raises."""
+    for rel in (("parallel", "train.py"), ("models", "transformer.py"),
+                ("models", "convert.py")):
+        path = os.path.join(PKG, *rel)
+        tree = ast.parse(open(path).read(), path)
+        assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], rel
+    path = os.path.join(PKG, "parallel", "mesh_utils.py")
+    tree = ast.parse(open(path).read(), path)
+    sharding = [n for n in tree.body if getattr(n, "name", None) in (
+        "MeshSharding", "param_shardings", "grad_process_sets",
+        "tensor_parallel_blocks", "tensor_parallel_local")]
+    assert len(sharding) == 5
+    assert not [n for node in sharding for n in ast.walk(node)
+                if isinstance(n, ast.Try)]

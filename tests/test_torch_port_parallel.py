@@ -865,9 +865,11 @@ def test_batch_spec_and_train_step_refusals():
     with pytest.raises(ValueError, match="does not divide"):
         tmesh.batch_spec(_FakeMesh(dp=3), 8, 16)
     cfg = TransformerConfig(**TINY, dtype=torch.float32)
-    for sizes, err in ((dict(tp=2), "ROADMAP A1"), (dict(fsdp=2),
-                                                      "ROADMAP A1")):
-        with pytest.raises(NotImplementedError, match=err):
+    # tp and fsdp shard the parameters; a dim that does not divide by its
+    # axis is refused before any process group is made
+    for sizes, err in ((dict(tp=3), "mesh axis 'tp' of size 3"),
+                       (dict(fsdp=3), "mesh axis 'fsdp' of size 3")):
+        with pytest.raises(ValueError, match=err):
             make_transformer_train_step(cfg, device="cpu",
                                         mesh=_FakeMesh(**sizes))
     with pytest.raises(ValueError, match="not divisible by sp=3"):

@@ -1,11 +1,16 @@
 """The training mesh over NCCL, one card a rank: the full-width default
 TransformerConfig (111,121,920 parameters, bf16 activations) at batch
-8 x 2048, trained 3 steps on sequence-parallel meshes, its losses held to
-the one-card flash step's from the same weights and data.
+8 x 2048, trained 3 steps on sequence-parallel and parameter-sharded
+meshes, its losses held to the one-card flash step's from the same
+weights and data.
 
-Marked ``cuda``; needs 2 cards (sp = 2 ring, sp = 2 Ulysses, dp = 2) or 4
-(sp = 4 ring, sp = 4 Ulysses with 12 heads / 4, dp = 2 x sp = 2 ring) and
-skips with fewer. On a 4-card machine, from the root of a checkout:
+Marked ``cuda``; needs 2 cards (sp = 2 ring, sp = 2 Ulysses, dp = 2, tp =
+2, fsdp = 2) or 4 (sp = 4 ring, sp = 4 Ulysses with 12 heads / 4, dp = 2
+x sp = 2 ring, tp = 4, fsdp = 4, fsdp = 2 x tp = 2, sp = 2 x tp = 2 ring)
+and skips with fewer. At 4 cards the world also saves its fsdp = 4 train
+state (parameters and AdamW state, block by block) and restores it onto
+dp = 4 and onto fsdp = 2 x tp = 2, every block held bit for bit to the
+saved global arrays. On a 4-card machine, from the root of a checkout:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_parallel*.py
 
@@ -29,9 +34,13 @@ and the stacks a hung rank dumped.
 
 Tolerances are chip_smoke.py's for the full-width bf16 losses of two
 attention paths from the same weights and data: 1e-3 over steps 1-2 (the
-ring rounds each step's partial output to bf16 before its merge, Ulysses
-and dp only reorder sums), 0.1 at step 3, where AdamW at lr 1e-3 has
-amplified the rounding differences.
+ring rounds each step's partial output to bf16 before its merge, tp sums
+bf16 partial products, Ulysses, dp and fsdp only reorder sums), 0.1 at
+step 3, where AdamW at lr 1e-3 has amplified the rounding differences.
+Per rank the RESULT line also carries the peak device memory of each
+mesh's steps and the bytes of this rank's parameters and AdamW state: at
+fsdp = 4 they must be at most 0.26 of the whole (a quarter, and the
+replicated LayerNorm parameters).
 """
 
 import faulthandler
@@ -57,7 +66,9 @@ STEPS = 3
 BATCH = 8
 TOL_LOSS = (1e-3, 1e-3, 0.1)
 #: each world's time limit (the worlds take about a minute each)
-WORKER_SECONDS = {"reference": 240, "mesh": 420, "order": 150}
+WORKER_SECONDS = {"reference": 240, "mesh": 720, "order": 150}
+#: the share of the whole train state one rank may hold at fsdp = 4
+FSDP4_STATE_SHARE = 0.26
 #: the order worlds' steps, and each step's limit (a step takes < 0.4 s)
 ORDER_STEPS = 20
 ORDER_STEP_SECONDS = 30
@@ -67,9 +78,15 @@ pytestmark = pytest.mark.cuda
 
 def _meshes(n):
     """(label, mesh config, attention kind) trained in a world of n."""
-    return [(f"sp{n}_ring", MeshConfig(sp=n), "ring"),
-            (f"sp{n}_ulysses", MeshConfig(sp=n), "ulysses"),
-            (f"dp2_sp{n // 2}_ring", MeshConfig(dp=2, sp=n // 2), "ring")]
+    meshes = [(f"sp{n}_ring", MeshConfig(sp=n), "ring"),
+              (f"sp{n}_ulysses", MeshConfig(sp=n), "ulysses"),
+              (f"dp2_sp{n // 2}_ring", MeshConfig(dp=2, sp=n // 2), "ring"),
+              (f"tp{n}", MeshConfig(dp=1, tp=n), "ring"),
+              (f"fsdp{n}", MeshConfig(dp=1, fsdp=n), "ring")]
+    if n == 4:
+        meshes += [("fsdp2_tp2", MeshConfig(dp=1, fsdp=2, tp=2), "ring"),
+                   ("sp2_tp2_ring", MeshConfig(dp=1, sp=2, tp=2), "ring")]
+    return meshes
 
 
 def _data(cfg):
@@ -79,12 +96,23 @@ def _data(cfg):
     return d[:, :-1].cuda(), d[:, 1:].cuda()
 
 
-def _train(cfg, tokens, targets, mesh=None, kind="ring"):
+def _state_bytes(bundle):
+    """Bytes of this rank's parameters and AdamW state."""
+    state = bundle.optimizer.state
+    return sum(t.numel() * t.element_size()
+               for p in bundle.model.parameters()
+               for t in [p] + [v for v in state.get(p, {}).values()
+                               if v.dim() > 0])
+
+
+def _train(cfg, tokens, targets, mesh=None, kind="ring", keep=False):
     bundle = make_transformer_train_step(
         cfg, mesh=mesh, attention_kind=kind,
         generator=torch.Generator(device="cuda").manual_seed(0))
-    hvd.broadcast_parameters(bundle.model.state_dict(), root_rank=0)
+    if bundle.sharding is None:   # sharded blocks come from one seed
+        hvd.broadcast_parameters(bundle.model.state_dict(), root_rank=0)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     fa.LAUNCHES["flash_fwd"] = 0
     losses, seconds = [], []
     for i in range(STEPS):
@@ -96,11 +124,68 @@ def _train(cfg, tokens, targets, mesh=None, kind="ring"):
         _log("step", len(losses), losses[-1], seconds[-1])
     launches = fa.LAUNCHES["flash_fwd"]
     breakdown = timer.read()
+    out = {"losses": losses, "step_seconds": seconds,
+           "flash_launches": launches, "last_step_ms": breakdown,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "state_bytes": _state_bytes(bundle)}
+    if keep:
+        return out, bundle
     bundle.optimizer.remove_hooks()
     del bundle
     torch.cuda.empty_cache()
-    return {"losses": losses, "step_seconds": seconds,
-            "flash_launches": launches, "last_step_ms": breakdown}
+    return out
+
+
+def _checkpoint_across_meshes(cfg, bundle, out_dir):
+    """Save ``bundle`` (trained on fsdp = 4) and restore it onto dp = 4 and
+    fsdp = 2 x tp = 2; every rank holds each block it has to the saved
+    global arrays, bit for bit (``torch.equal``)."""
+    import shutil
+
+    from horovod_tpu_torch import checkpointing as cp
+    from horovod_tpu_torch.checkpointing.snapshot import tree_flatten
+    from horovod_tpu_torch.parallel import (
+        restore_mesh_train_state, save_mesh_train_state, train_state_tree)
+    root = os.path.join(out_dir, "ckpt_4card")
+    if hvd.rank() == 0:
+        shutil.rmtree(root, ignore_errors=True)
+    hvd.barrier()
+    mgr = cp.CheckpointManager(root)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_mesh_train_state(mgr, 3, bundle)
+    save_s = time.perf_counter() - t0
+    whole = mgr.restore(step=3)            # global CPU arrays
+
+    def matches(b):
+        ok = True
+        for (_, got), (_, want) in zip(tree_flatten(train_state_tree(b))[0],
+                                       tree_flatten(whole)[0]):
+            if isinstance(got, cp.Shard):
+                got, want = got.data, want[got.index()]
+            ok = ok and torch.equal(got.cpu(), want)
+        return ok
+    out = {"save_ms": save_s * 1e3, "saved_blocks_exact": matches(bundle)}
+    bundle.optimizer.remove_hooks()
+    for label, mc in (("dp4", MeshConfig(dp=4)),
+                      ("fsdp2_tp2", MeshConfig(dp=1, fsdp=2, tp=2))):
+        b = make_transformer_train_step(
+            cfg, mesh=make_training_mesh(mc),
+            generator=torch.Generator(device="cuda").manual_seed(1))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step = restore_mesh_train_state(mgr, b)
+        torch.cuda.synchronize()
+        out[f"restore_{label}_ms"] = (time.perf_counter() - t0) * 1e3
+        out[f"restored_{label}_exact"] = step == 3 and matches(b)
+        b.optimizer.remove_hooks()
+        del b
+        torch.cuda.empty_cache()
+    hvd.barrier()
+    if hvd.rank() == 0:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
 
 
 class _StepTimer:
@@ -237,7 +322,16 @@ def _worker(mode: str, *args) -> int:
         for label, mc, kind in _meshes(n):
             mesh = make_training_mesh(mc)
             _log(label, "mesh made")
-            out[label] = _train(cfg, tokens, targets, mesh, kind)
+            keep = n == 4 and label == "fsdp4"
+            out[label] = _train(cfg, tokens, targets, mesh, kind, keep)
+            if keep:
+                out[label], bundle = out[label]
+                out["checkpoint"] = _checkpoint_across_meshes(
+                    cfg, bundle, args[0] if args else os.path.join(
+                        ROOT, "build"))
+                del bundle
+                torch.cuda.empty_cache()
+                _log("checkpoint", out["checkpoint"])
             _log(label, "trained", out[label]["losses"])
             if mc.sp > 1:
                 out[label]["comm"] = _comm_ms(mesh, cfg)
@@ -276,7 +370,17 @@ def test_nccl_mesh_training_matches_one_card(n):
         for r in per_rank:
             assert r["flash_launches"] == \
                 per_call * cfg.num_layers * STEPS, (label, r)
+        if label == f"fsdp{n}" and n == 4:
+            for r in per_rank:
+                assert r["state_bytes"] <= \
+                    FSDP4_STATE_SHARE * ref["state_bytes"], (label, r)
     assert ref["flash_launches"] == cfg.num_layers * STEPS
+    if n == 4:
+        for r in results:
+            ck = r["checkpoint"]
+            assert ck["saved_blocks_exact"], ck
+            assert ck["restored_dp4_exact"], ck
+            assert ck["restored_fsdp2_tp2_exact"], ck
 
 
 @pytest.mark.parametrize("n", [2, 4])
