@@ -52,7 +52,23 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
    restore with fallback must then land on the previous step. Prints the
    sync save's ms and GB/s, the async save's on-thread snapshot ms, and
    the restore's ms and GB/s.
-9. collectives: every collective verb on CUDA tensors through NCCL at
+9. cnn: the CNN zoo through the synthetic benchmark's rig
+   (horovod_tpu_torch.benchmark._Rig: DistributedOptimizer(SGD) on NCCL at
+   size 1, bf16 activations on fp32 parameters, channels_last, cuDNN
+   autotuning on). ResNet-50 at full width (224 x 224, 1000 classes)
+   timed at batch 256 with the conv and the space-to-depth stem and at
+   batch 128 with the conv stem: img/s, ms/step, MFU from the FLOPs
+   counted for a step against the 989 TFLOP/s bf16 peak, peak memory,
+   finite losses; then one timed step each of VGG16 (224) and
+   InceptionV3 (299). Last, the same ResNet-50 in fp32 at batch 4 on the
+   card and on the port's CPU path from the same weights (BatchNorm
+   parameters and statistics drawn at random, so every block computes):
+   eval logits, train-mode logits and the updated batch statistics held
+   to the CPU's, and one SGD step's parameter update, whole and tensor by
+   tensor, held to an fp64 step on the CPU that replays the card's ReLU
+   decisions (see TOL_CNN_UPDATE). No kernel
+   of the port runs here: the JAX package's CNNs reach no Pallas kernel.
+10. collectives: every collective verb on CUDA tensors through NCCL at
    size 1, at the full-width trainer's sizes (its parameters, its AdamW
    state, its gradient set in the optimizer's 7 buckets): parameter and
    optimizer-state broadcast, grouped allreduce under every op, allgather,
@@ -68,6 +84,7 @@ Then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 checkout, it exits non-zero and prints no result.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -818,6 +835,193 @@ def checkpoint_phase(torch, bundle, tokens, targets):
                              "a bad shard was not caught")
 
 
+# cnn phase. Parity, card against CPU in fp32 (TF32 off, cuDNN autotuning
+# off): both sum in fp32 in other orders (cuDNN's and oneDNN's conv
+# algorithms), so forward values and batch statistics agree to relative L2
+# TOL_CNN_FWD. One SGD step's update is held to an fp64 step on the CPU
+# that replays the card's ReLU decisions: with BatchNorm scales drawn in
+# [0.5, 1.5) (so every residual branch computes), the few ReLU inputs
+# within rounding of zero that take the other sign in fp32 (tens among
+# millions) move the update of every earlier layer by a few percent, on
+# either device (the phase prints that count and the card's distance
+# from the CPU's update). On a CPU ResNet-50 at 64 and 112 px, batch 4,
+# fp32 against plain fp64 is 2.3e-2 and 1.6e-2; with the fp64 step taking
+# fp32's ReLU masks, 8.1e-5 and 3.9e-5, and no parameter tensor's update
+# is more than 1.4e-4 off. So the replayed update is held to the fixed
+# TOL_CNN_UPDATE, as a whole and tensor by tensor: a layout, padding,
+# statistics or backward fault in any one layer moves that layer's
+# update past it (a 1% error in one conv's kernel gradient does).
+CNN_TIMED = ((256, "conv"), (256, "space_to_depth"), (128, "conv"))
+CNN_OTHERS = (("vgg16", 224, 64), ("inception3", 299, 64))
+CNN_PARITY_BATCH = 4
+TOL_CNN_FWD = 1e-4
+TOL_CNN_UPDATE = 1e-3
+
+
+def rel_l2(torch, got, want) -> float:
+    got = torch.cat([t.double().reshape(-1).cpu() for t in got])
+    want = torch.cat([t.double().reshape(-1).cpu() for t in want])
+    return ((got - want).norm() / want.norm()).item()
+
+
+@contextlib.contextmanager
+def relu_masks(torch, masks: list, replay: bool):
+    """Inside, ``F.relu`` records whether each input is positive into
+    ``masks`` (on the CPU), or, with ``replay``, multiplies each input by
+    the recorded mask of the same call in turn, so a model reruns another
+    run's ReLU decisions (same derivative: 1 where positive, else 0)."""
+    F = torch.nn.functional
+    relu = F.relu
+    recorded = iter(masks)
+
+    def masked(t, inplace=False):
+        if replay:
+            return t * next(recorded).to(t.device, t.dtype)
+        masks.append((t > 0).cpu())
+        return relu(t, inplace=inplace)
+
+    F.relu = masked
+    try:
+        yield
+    finally:
+        F.relu = relu
+    if replay and next(recorded, None) is not None:
+        raise AssertionError("the replayed run made fewer ReLU calls")
+
+
+def resnet_parity(torch, build, batch: int, size: int) -> dict:
+    """The model ``build(dtype=, device=, generator=)`` in fp32 on the card
+    and on the port's CPU path from the same weights (BatchNorm parameters
+    and statistics drawn at random) and batch, and in fp64 on the CPU with
+    the card's ReLU masks: relative L2 of the eval logits, train-mode
+    logits and updated batch statistics, card against CPU, and of one SGD
+    step's parameter update, card against fp64, over all parameters and
+    for the parameter tensor farthest off; beside them, for reading
+    only, the train-mode ReLU inputs whose sign the card and the CPU
+    disagree on and the card's update against the CPU's."""
+    import copy
+
+    import torch.nn.functional as F
+    gen = torch.Generator().manual_seed(4)
+    cpu = build(dtype=torch.float32, device="cpu", generator=gen)
+    with torch.no_grad():
+        for name, t in list(cpu.named_parameters()) + list(
+                cpu.named_buffers()):
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in ("scale", "var"):
+                t.uniform_(0.5, 1.5, generator=gen)
+            elif leaf in ("bias", "mean"):
+                t.normal_(0.0, 0.1, generator=gen)
+    exact = copy.deepcopy(cpu).double()
+    for m in exact.modules():
+        if getattr(m, "dtype", None) == torch.float32:
+            m.dtype = torch.float64
+    card = build(dtype=torch.float32, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    card.to(memory_format=torch.channels_last)
+    x = torch.randn(batch, 3, size, size, generator=gen)
+    y = torch.randint(0, 1000, (batch,), generator=gen)
+    out, masks = {}, {"cuda": [], "cpu": []}
+    for model, dev in ((card, "cuda"), (cpu, "cpu"), (exact, "fp64")):
+        xx = x.double() if dev == "fp64" else x.to(dev)
+        if dev == "cuda":
+            xx = xx.contiguous(memory_format=torch.channels_last)
+        model.eval()
+        with torch.no_grad():
+            eval_logits = model(xx)
+        model.train()
+        opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+        before = [p.detach().clone() for p in model.parameters()]
+        with relu_masks(torch, masks["cuda" if dev == "fp64" else dev],
+                        replay=dev == "fp64"):
+            logits = model(xx)
+            F.cross_entropy(logits, y.to(xx.device)).backward()
+        opt.step()
+        out[dev] = {
+            "eval_logits": [eval_logits], "train_logits": [logits.detach()],
+            "batch_stats": [b for _, b in model.named_buffers()],
+            "sgd_update": [p.detach() - q for p, q in
+                           zip(model.parameters(), before)]}
+    errs = {k: rel_l2(torch, out["cuda"][k], out["cpu"][k])
+            for k in ("eval_logits", "train_logits", "batch_stats")}
+    errs["sgd_update"] = rel_l2(torch, out["cuda"]["sgd_update"],
+                                out["fp64"]["sgd_update"])
+    leaves = sorted((rel_l2(torch, [a], [b]), name) for a, b, (name, _) in
+                    zip(out["cuda"]["sgd_update"], out["fp64"]["sgd_update"],
+                        card.named_parameters()))
+    errs["sgd_update_worst_leaf"] = leaves[-1][0]
+    info = {"sgd_update_worst_leaf_name": leaves[-1][1],
+            "relu_sign_flips": sum(
+                int((a != b).sum()) for a, b in
+                zip(masks["cuda"], masks["cpu"])),
+            "relu_inputs": sum(m.numel() for m in masks["cuda"]),
+            "sgd_update_cuda_vs_cpu": rel_l2(
+                torch, out["cuda"]["sgd_update"], out["cpu"]["sgd_update"])}
+    return errs, info
+
+
+def cnn_limits() -> dict:
+    """The limit of each of :func:`resnet_parity`'s errors it is held to."""
+    limits = {k: TOL_CNN_FWD for k in
+              ("eval_logits", "train_logits", "batch_stats")}
+    limits["sgd_update"] = limits["sgd_update_worst_leaf"] = TOL_CNN_UPDATE
+    return limits
+
+
+def cnn_parity(torch):
+    """fp32 ResNet-50 at 224 px on the card against the port's CPU path."""
+    from horovod_tpu_torch.models import ResNet50
+    errs, info = resnet_parity(torch, ResNet50, CNN_PARITY_BATCH, 224)
+    limits = cnn_limits()
+    ok = all(errs[k] <= limits[k] for k in limits)
+    emit({"phase": "cnn_parity", "model": "ResNet50 fp32, 224 px",
+          "batch": CNN_PARITY_BATCH, "rel_l2": errs, "limit": limits,
+          "ok": ok, **info})
+    if not ok:
+        raise AssertionError("ResNet-50 on the card disagrees with the "
+                             "port's CPU path")
+
+
+def cnn_phase(torch):
+    """ResNet-50 timed through the benchmark's rig, its fp32 parity with
+    the CPU path, and one timed step of VGG16 and InceptionV3."""
+    from horovod_tpu_torch import benchmark as bm
+    autotune = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+
+    def run(model_name, image_size, batch, stem, warmup, per_iter, iters):
+        rig = bm._Rig(batch, image_size, model_name, "sgd", stem=stem)
+        try:
+            losses = [rig.step().item() for _ in range(warmup)]
+            r = rig.run_stage(0, per_iter, iters)
+            losses.append(float(rig.loss))
+        finally:
+            rig.close()
+            del rig
+            torch.cuda.empty_cache()
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{model_name}: non-finite loss {losses}")
+        row = {"model": model_name, "image_size": image_size,
+               "batch": batch, "stem": r.stem,
+               "img_per_s": r.images_per_sec_per_chip,
+               "ms_per_step": 1e3 * r.iter_mean_s / per_iter,
+               "flops_per_step": r.flops_per_step, "mfu": r.mfu,
+               "peak_memory_gib": r.peak_memory_gib,
+               "steps_timed": per_iter * iters, "losses": losses}
+        emit({"phase": "cnn", **row})
+        return row
+
+    try:
+        rows = [run("resnet50", 224, batch, stem, 3, 5, 4)
+                for batch, stem in CNN_TIMED]
+        rows += [run(name, size, batch, None, 2, 1, 1)
+                 for name, size, batch in CNN_OTHERS]
+    finally:
+        torch.backends.cudnn.benchmark = autotune
+    cnn_parity(torch)
+    return rows
+
+
 COLLECTIVES_NOTE = ("NCCL at size 1 is a device copy: these are the port's "
                     "own overheads (dispatcher hop, fusion copies, scales), "
                     "not a network's")
@@ -1066,6 +1270,7 @@ def main() -> int:
         torch, hvd, fa, collectives, cfg, tokens, targets)
     train_default_reference(torch, cfg, tokens, targets, losses)
     checkpoint_phase(torch, bundle, tokens, targets)
+    cnn_phase(torch)
     bundle.optimizer.remove_hooks()
     # last: its join() leaves this process contributing zeros
     collectives_phase(torch, hvd, collectives, bundle)

@@ -32,8 +32,9 @@ def save(directory: str, step: int, tree, force: bool = False) -> str:
                                              force=force)
 
 
-def restore(directory: str, step=None, target=None, fallback: bool = False):
+def restore(directory: str, step=None, target=None, sharding=None,
+            fallback: bool = False):
     """One-shot restore through a throwaway manager (see
     :meth:`CheckpointManager.restore`)."""
     return CheckpointManager(directory).restore(
-        step=step, target=target, fallback=fallback)
+        step=step, target=target, sharding=sharding, fallback=fallback)

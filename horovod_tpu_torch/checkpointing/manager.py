@@ -578,19 +578,30 @@ class CheckpointManager:
     # -- restore -------------------------------------------------------------
 
     def restore(self, step: Optional[int] = None, target: Any = None,
-                fallback: bool = False) -> Any:
-        """Restore the tree at ``step`` (default: latest committed).
+                sharding=None, fallback: bool = False) -> Any:
+        """Restore the tree at ``step`` (default: latest committed); the
+        JAX package's signature.
 
         ``target`` gives the structure, and where each leaf goes: a
         tensor target gets the whole array on its device, a
         ``snapshot.Shard`` target its block of the global array (shards
         are reassembled by their recorded global offsets, so the saving
         and restoring meshes are independent: the elastic
-        resume-onto-another-mesh case; the JAX package's ``sharding=``).
-        Without a target, leaves are whole CPU tensors. ``fallback=True``
-        walks back past corrupt/partial/missing steps (counted); without
-        it the first failure surfaces.
+        resume-onto-another-mesh case). Without a target, leaves are
+        whole CPU tensors. ``sharding`` keeps the JAX package's place in
+        the signature, so a call written for it never binds a sharding to
+        ``fallback``; a JAX sharding has no object here, and any value but
+        None raises ValueError, naming the route that places blocks: a
+        target whose leaves are ``Shard`` objects. ``fallback=True`` walks
+        back past corrupt/partial/missing steps (counted); without it the
+        first failure surfaces.
         """
+        if sharding is not None:
+            raise ValueError(
+                f"restore(sharding={sharding!r}): this package places "
+                f"restored leaves by target=; to restore blocks onto a "
+                f"mesh, pass a target whose leaves are checkpointing.Shard "
+                f"(parallel.train_state_tree builds one)")
         if step is None:
             candidates = layout.completed_steps(self.directory)
             if not candidates:
@@ -671,7 +682,7 @@ class CheckpointManager:
         step ``restore_last_good`` will consider newest-first from."""
         self.last_good_step = int(step)
 
-    def restore_last_good(self, target: Any = None) -> Any:
+    def restore_last_good(self, target: Any = None, sharding=None) -> Any:
         """Restore the last-good step (``restore`` with fallback past
         anything that rotted on disk since the promotion). Raises
         RuntimeError when nothing was ever promoted — rollback without a
@@ -681,7 +692,7 @@ class CheckpointManager:
                 "no last-good checkpoint promoted yet; cannot roll back "
                 f"under {self.directory!r}")
         return self.restore(step=self.last_good_step, target=target,
-                            fallback=True)
+                            sharding=sharding, fallback=True)
 
     def _demote(self, step: int) -> None:
         """Atomically un-commit a corrupt step (idempotent across

@@ -31,7 +31,9 @@ The manifest's ``treedef`` field holds this package's structure encoding:
 int), a list ``{"list": [node, ...]}`` and a tuple ``{"tuple": [...]}``.
 The JAX package writes a pickled ``PyTreeDef`` there, which this package
 cannot read: such a checkpoint restores through ``target=``, or from its
-``path`` strings when the tree is nested dicts and sequences.
+``path`` strings when the tree is nested dicts and sequences
+(:func:`tree_from_paths`: tuples come back as lists, None leaves are
+dropped, and a None inside a sequence raises).
 """
 
 import json
@@ -202,8 +204,15 @@ _KEY = re.compile(r"\[('(?:[^'\\]|\\.)*'|\"(?:[^\"\\]|\\.)*\"|-?\d+)\]")
 
 
 def tree_from_paths(paths: List[str], leaves: List[Any]) -> Any:
-    """Nested dicts from ``['a']['b']``-style paths (a list for ``[0]``
-    keys); raises ValueError for any other path (attributes, boxes)."""
+    """Nested dicts from ``['a']['b']``-style paths, a list where a
+    level's keys are exactly ``[0]`` .. ``[n-1]``.
+
+    Paths record leaves only, so this is the saved tree only up to what
+    they cannot tell: a tuple comes back as a list, and a None leaf (an
+    empty node) is not there at all. A level whose int keys are not
+    exactly 0..n-1 (a None inside a sequence) or that mixes int and str
+    keys raises ValueError, as does any other path (attributes, boxes):
+    restore with ``target=`` for the exact structure."""
     root: Dict[Any, Any] = {}
     for path, leaf in zip(paths, leaves):
         keys, pos = [], 0
@@ -222,15 +231,20 @@ def tree_from_paths(paths: List[str], leaves: List[Any]) -> Any:
             node = node.setdefault(key, {})
         node[keys[-1]] = leaf
 
-    def lists(node):
+    def lists(node, path):
         if not isinstance(node, dict):
             return node
-        out = {k: lists(v) for k, v in node.items()}
-        if out and all(isinstance(k, int) for k in out) \
-                and sorted(out) == list(range(len(out))):
-            return [out[i] for i in range(len(out))]
-        return out
-    return lists(root)
+        out = {k: lists(v, f"{path}[{k!r}]") for k, v in node.items()}
+        ints = [k for k in out if isinstance(k, int)]
+        if not ints:
+            return out
+        if len(ints) != len(out) or sorted(ints) != list(range(len(ints))):
+            raise ValueError(
+                f"cannot rebuild the sequence at {path or 'the root'} from "
+                f"its paths (keys {sorted(out, key=str)}: a None or a "
+                f"mapping inside it); restore with target=")
+        return [out[i] for i in range(len(out))]
+    return lists(root, "")
 
 
 # -- snapshot ----------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Carry weights from the JAX package's flax transformer into the port.
+"""Carry weights from the JAX package's flax models into the port.
 
 The port keeps the flax module's parameter names and shapes, so conversion
 is a copy: the nested dict ``{"layer_0": {"attn": {"wq": ...}}}`` becomes
@@ -6,6 +6,10 @@ the ``state_dict`` key ``layer_0.attn.wq``. On a training mesh with tp or
 fsdp (``mesh=``) each process takes its blocks of the global arrays, as
 ``parallel.mesh_utils.param_shardings`` lays them out, and
 :func:`params_to_flax` gathers the blocks back into global arrays.
+
+The CNN zoo (ResNet, VGG, Inception, MLP) converts the same way by name,
+with the batch statistics as buffers and kernels moved to torch's layout:
+:func:`cnn_params_from_flax` and :func:`cnn_params_to_flax`.
 """
 
 from typing import Any, Dict, Mapping
@@ -135,3 +139,71 @@ def moe_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
         raise ValueError("MoE leaf shapes do not agree: " + "; ".join(wrong))
     return {n: torch.from_numpy(np.array(tree[n], dtype=np.float32))
             for n in names}
+
+
+_STATS = ("mean", "var")
+
+
+def _torch_layout(a: np.ndarray) -> np.ndarray:
+    # conv HWIO -> OIHW, dense (in, out) -> (out, in)
+    return a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+
+
+def _flax_layout(a: np.ndarray) -> np.ndarray:
+    return a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+
+
+def cnn_params_from_flax(model: torch.nn.Module, variables: Mapping
+                         ) -> Dict[str, torch.Tensor]:
+    """``model``'s ``state_dict`` (fp32 CPU tensors) from the JAX model's
+    variables ``{"params": ..., "batch_stats": ...}`` (numpy or JAX
+    arrays; VGG and the MLP have no batch_stats). ``kernel`` leaves are
+    moved to torch's layout, BatchNorm's ``mean`` and ``var`` come from
+    batch_stats, everything else is copied. Every leaf of the model must
+    be in the tree with its shape and every leaf of the tree used, or
+    ValueError is raised."""
+    trees = {"params": _flatten(variables["params"]),
+             "batch_stats": _flatten(variables.get("batch_stats", {}))}
+    unknown = sorted(set(variables) - set(trees))
+    if unknown:
+        raise ValueError(f"unknown flax collections {unknown}")
+    state, missing, wrong = {}, [], []
+    used = {k: set() for k in trees}
+    for name, t in model.state_dict().items():
+        kind = "batch_stats" if name.rsplit(".", 1)[-1] in _STATS \
+            else "params"
+        if name not in trees[kind]:
+            missing.append(f"{kind}/{name}")
+            continue
+        used[kind].add(name)
+        a = np.array(trees[kind][name], dtype=np.float32)   # a copy
+        if name.endswith(".kernel"):
+            a = _torch_layout(a)
+        if a.shape != tuple(t.shape):
+            wrong.append(f"{name}: {a.shape} != {tuple(t.shape)}")
+            continue
+        state[name] = torch.from_numpy(np.ascontiguousarray(a))
+    leftover = sorted(f"{k}/{n}" for k, tree in trees.items()
+                      for n in tree if n not in used[k])
+    if missing or leftover:
+        raise ValueError(f"flax variables do not match the model: missing "
+                         f"{sorted(missing)}, leftover {leftover}")
+    if wrong:
+        raise ValueError("flax leaf shapes do not match: " + "; ".join(wrong))
+    return state
+
+
+def cnn_params_to_flax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of :func:`cnn_params_from_flax`: ``{"params": ...,
+    "batch_stats": ...}`` (nested dicts of fp32 numpy arrays; no
+    batch_stats for a model without BatchNorm) from a CNN's
+    ``state_dict``."""
+    out: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
+    for name, t in state.items():
+        a = np.array(t.detach().float().cpu().numpy())   # a copy
+        if name.endswith(".kernel"):
+            a = np.ascontiguousarray(_flax_layout(a))
+        kind = "batch_stats" if name.rsplit(".", 1)[-1] in _STATS \
+            else "params"
+        out[kind][name] = a
+    return {k: nest(v) for k, v in out.items() if v}

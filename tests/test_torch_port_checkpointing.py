@@ -416,6 +416,73 @@ def test_jax_checkpoint_restores_in_the_port(tmp_path, no_faults):
             np.testing.assert_array_equal(_bits(flat[name]), _bits(want))
 
 
+def test_jax_checkpoint_with_none_and_tuple_raises_or_restores(
+        tmp_path, no_faults):
+    """The JAX package restores {"a": [x, None, y], "b": (z,)} as it was
+    saved; from its leaf paths alone the port cannot (the None leaves no
+    path), so it raises and names target=, and with a target it restores
+    the exact structure. Without the None, a tuple comes back as a list
+    (the documented limit of a restore from paths)."""
+    from horovod_tpu import checkpointing as jcp
+    rng = np.random.RandomState(4)
+    x, y, z = (rng.randn(3).astype(np.float32) for _ in range(3))
+    jcp.CheckpointManager(str(tmp_path / "gap")).save(
+        1, {"a": [x, None, y], "b": (z,)}, async_=False)
+    back = jcp.CheckpointManager(str(tmp_path / "gap")).restore(step=1)
+    assert back["a"][1] is None and isinstance(back["b"], tuple)
+    mgr = tcp.CheckpointManager(str(tmp_path / "gap"))
+    with pytest.raises(ValueError, match="target="):
+        mgr.restore(step=1)
+    like = {"a": [torch.zeros(3), None, torch.zeros(3)],
+            "b": (torch.zeros(3),)}
+    out = mgr.restore(step=1, target=like)
+    _same(out, {"a": [torch.from_numpy(x), None, torch.from_numpy(y)],
+                "b": (torch.from_numpy(z),)})
+    jcp.CheckpointManager(str(tmp_path / "full")).save(
+        1, {"a": [x, y], "b": (z,)}, async_=False)
+    out = tcp.CheckpointManager(str(tmp_path / "full")).restore(step=1)
+    _same(out, {"a": [torch.from_numpy(x), torch.from_numpy(y)],
+                "b": [torch.from_numpy(z)]})
+
+
+def test_restore_takes_sharding_in_the_jax_order(tmp_path, no_faults):
+    """restore(step, target, sharding, fallback) and
+    restore_last_good(target, sharding), as in the JAX package: sharding
+    None, given positionally or by keyword, restores as before and leaves
+    fallback in its own place; any other sharding, such as a boolean meant
+    for fallback or a device, raises ValueError naming the
+    target-of-Shards route instead of binding silently."""
+    import inspect
+
+    from horovod_tpu import checkpointing as jcp
+    for name in ("restore", "restore_last_good"):
+        assert list(inspect.signature(getattr(
+            tcp.CheckpointManager, name)).parameters) == list(
+            inspect.signature(getattr(jcp.CheckpointManager,
+                                      name)).parameters)
+    assert list(inspect.signature(tcp.restore).parameters) == list(
+        inspect.signature(jcp.restore).parameters)
+    d = str(tmp_path)
+    mgr = tcp.CheckpointManager(d)
+    tree = _tree(1)
+    mgr.save(1, tree, async_=False)
+    _same(mgr.restore(1, tree, None), tree)
+    _same(mgr.restore(1, None, None, True), mgr.restore(step=1,
+                                                        sharding=None))
+    _same(tcp.restore(d, 1, tree, None, True), tree)
+    mgr.promote_last_good(1)
+    _same(mgr.restore_last_good(tree, None), tree)
+    for bad in (True, "cpu", torch.device("cpu"), {"params": None}):
+        with pytest.raises(ValueError, match="Shard"):
+            mgr.restore(1, None, bad)
+        with pytest.raises(ValueError, match="Shard"):
+            mgr.restore(step=1, sharding=bad)
+        with pytest.raises(ValueError, match="Shard"):
+            tcp.restore(d, 1, None, bad)
+        with pytest.raises(ValueError, match="Shard"):
+            mgr.restore_last_good(None, bad)
+
+
 def test_port_checkpoint_restores_in_jax(tmp_path, no_faults):
     from horovod_tpu import checkpointing as jcp
     tree = _torch_like(_jax_tree())

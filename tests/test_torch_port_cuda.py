@@ -13,13 +13,17 @@ fp16 outputs within a per-element bound of one output rounding plus one
 rounding step of P, with at most 5% of the elements differing at all;
 lse within 1e-4. The verbs are exact at size 1 (integer-valued data and
 power-of-two scales); SyncBatchNorm is held to nn.BatchNorm within 1e-5.
+ResNet-18 in fp32 on the card is held to the port's CPU path, and its
+SGD update to the fp64 update, within chip_smoke.py's cnn limits (TF32
+off).
 """
 
 import pytest
 import torch
 
 import horovod_tpu_torch as hvd
-from chip_smoke import MISMATCH_LIMIT, TOL_FP32, TOL_LSE, half_agreement
+from chip_smoke import (MISMATCH_LIMIT, TOL_FP32, TOL_LSE, cnn_limits,
+                        half_agreement, resnet_parity)
 from horovod_tpu_torch import collectives as tcoll
 from horovod_tpu_torch.ops import flash_attention as fa
 
@@ -240,3 +244,15 @@ def test_dispatcher_waits_for_the_callers_stream(nccl):
         (g,) = hvd.grouped_broadcast([x], root_rank=0)
         gathered = hvd.allgather(x[:1000])
         assert g.min().item() == 5.0 and gathered.min().item() == 5.0
+
+
+def test_resnet18_on_the_card_matches_the_cpu_path(cuda):
+    from horovod_tpu_torch.models import ResNet18
+    allow = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        errs, info = resnet_parity(torch, ResNet18, 2, 64)
+    finally:
+        torch.backends.cudnn.allow_tf32 = allow
+    limits = cnn_limits()
+    assert all(errs[k] <= limits[k] for k in limits), (errs, limits, info)

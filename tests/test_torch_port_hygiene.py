@@ -70,6 +70,37 @@ def test_imports_with_jax_blocked():
     assert r.stdout.startswith("imported")
 
 
+def test_cnn_zoo_and_benchmark_import_with_jax_blocked():
+    code = (
+        "import sys\n"
+        f"for m in {sorted(FORBIDDEN)!r}:\n"
+        "    sys.modules[m] = None\n"
+        "import horovod_tpu_torch.models.resnet\n"
+        "import horovod_tpu_torch.models.vgg\n"
+        "import horovod_tpu_torch.models.inception\n"
+        "import horovod_tpu_torch.models.mlp\n"
+        "import horovod_tpu_torch.models.layers\n"
+        "import horovod_tpu_torch.benchmark, horovod_tpu_torch.bench\n"
+        "from horovod_tpu_torch.models import ResNet50\n"
+        "print(sum(p.numel() for p in ResNet50(device='meta')"
+        ".parameters()))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "25557032"
+
+
+def test_cnn_models_run_on_cuda_unless_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    from horovod_tpu_torch import models
+    for build in (models.ResNet18, models.VGG11, models.InceptionV3,
+                  models.MLP):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+
+
 def test_default_device_entry_points_raise_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
