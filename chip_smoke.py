@@ -79,6 +79,24 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
    line per verb; NCCL at size 1 is a device copy, so these are the
    port's own overheads, not a network's).
 
+11. elastic: the launcher and elastic training (after the world of the
+   phases above is shut down). (a) ``python -m horovod_tpu_torch.runner
+   -np 1`` starts this script as a worker (``--elastic-worker static``):
+   3 full-width steps of the default config on NCCL, on the train phase's
+   seeds, whose losses must equal the train phase's first 3, bit for bit.
+   (b) The same with ``--min-np 1 --host-discovery-script`` (a script that
+   prints localhost:1): the elastic driver, the rendezvous, the
+   notification service and heartbeats, the worker under
+   hvd.elastic.run with a TorchState committed, durably, every step;
+   prints each commit's on-thread save ms and durable-write ms and the
+   flash launches, and the losses must again equal the train phase's.
+   (c) In this process, at full width: hvd.elastic.run with a TorchState;
+   the training function raises HostsUpdatedInterrupt once after step 2's
+   commit, the in-process reset re-forms NCCL at size 1, and the run
+   completes 4 steps. The state on re-entry must equal the commit
+   (torch.equal, parameters and AdamW state) and the final parameters an
+   uninterrupted 4-step run's (torch.equal); prints the reset's ms.
+
 Then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result.
@@ -1225,6 +1243,255 @@ def collectives_phase(torch, hvd, collectives, bundle):
            join_checks, reps=1)
 
 
+# -- elastic phase -----------------------------------------------------------
+
+ELASTIC_STEPS = 3        # steps of each launched worker
+RESET_STEPS = 4          # steps of the in-process reset run
+RESET_AFTER = 2          # the interrupt comes after this step's commit
+
+
+def _train_bundle(torch, cfg, broadcast: bool = True):
+    """The main path's bundle and batch: the same seeds as ``train``.
+    Under hvd.elastic.run pass ``broadcast=False``: the state's sync() is
+    where rank 0's weights reach every worker, and a worker that joins a
+    running job must issue no collective the survivors do not (they
+    re-enter at sync(), not at the top of the script)."""
+    from horovod_tpu_torch.parallel import make_transformer_train_step
+    import horovod_tpu_torch as hvd
+    bundle = make_transformer_train_step(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0))
+    if broadcast:
+        hvd.broadcast_parameters(bundle.model.state_dict(), root_rank=0)
+    data = torch.randint(0, cfg.vocab_size, (BATCH, cfg.max_seq_len + 1),
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(1), device="cuda")
+    return bundle, data[:, :-1], data[:, 1:]
+
+
+def elastic_worker(mode: str, out_path: str) -> int:
+    """A worker the port's launcher starts (``chip_smoke.py
+    --elastic-worker static|elastic <out.json>``): the full-width default
+    model, ELASTIC_STEPS steps on the main path's seeds; under ``elastic``
+    through hvd.elastic.run with a TorchState committed every step."""
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import TransformerConfig
+    from horovod_tpu_torch.ops import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    hvd.init()
+    bundle, tokens, targets = _train_bundle(torch, TransformerConfig(),
+                                            broadcast=mode == "static")
+    losses, commits = [], []
+    fa.LAUNCHES["flash_fwd"] = 0
+    if mode == "static":
+        losses = [bundle.step(tokens, targets).item()
+                  for _ in range(ELASTIC_STEPS)]
+    else:
+        state = hvd.elastic.TorchState(bundle.model, bundle.optimizer,
+                                       step=0)
+
+        @hvd.elastic.run
+        def train(state):
+            while state.step < ELASTIC_STEPS:
+                losses.append(bundle.step(tokens, targets).item())
+                state.step += 1
+                state.commit()
+                commits.append(state.last_commit_seconds)
+        train(state)
+    out = {"mode": mode, "losses": losses, "flash_launches":
+           fa.LAUNCHES["flash_fwd"], "rank": hvd.rank(), "size": hvd.size(),
+           "backend": hvd.basics.world().backend,
+           "device": str(hvd.device()),
+           "commit_save_ms": [1e3 * a for a, _ in commits],
+           "commit_durable_ms": [1e3 * b for _, b in commits],
+           "state_dir": os.environ.get("HVD_TPU_ELASTIC_STATE_DIR", ""),
+           "elastic_env": os.environ.get("HVD_TPU_ELASTIC", "")}
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    hvd.shutdown()
+    return 0
+
+
+def kill_matching(token: str) -> None:
+    """SIGKILL every process whose command line holds ``token`` (the
+    workers a launcher started in sessions of their own, when the launcher
+    had to be killed)."""
+    import signal
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit() or int(pid) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmdline = f.read().decode(errors="replace")
+        except OSError:
+            continue
+        if token in cmdline:
+            with contextlib.suppress(OSError):
+                os.kill(int(pid), signal.SIGKILL)
+
+
+def launch_runner(args, token: str, timeout: float = 600):
+    """``python -m horovod_tpu_torch.runner *args`` from the checkout's
+    root; returns (exit code, output, seconds). Past ``timeout`` the
+    launcher and every process holding ``token`` are killed."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "horovod_tpu_torch.runner", *args], cwd=root,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        kill_matching(token)
+        out, _ = proc.communicate()
+        out += f"\n[killed after {timeout} s]"
+    return proc.returncode, out, time.perf_counter() - t0
+
+
+def elastic_phase(torch, fa, cfg, main_losses):
+    """The launcher and elastic training on the card (module docstring,
+    phase 11). Returns the flash launches of each of its three paths."""
+    import importlib
+    import shutil
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import basics, metrics
+    from horovod_tpu_torch.exceptions import HostsUpdatedInterrupt
+    run_mod = importlib.import_module("horovod_tpu_torch.elastic.run")
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "chip_elastic")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    me = os.path.join(root, "chip_smoke.py")
+    want = main_losses[:ELASTIC_STEPS]
+
+    # 1. static launch, -np 1
+    out = os.path.join(work, "static.json")
+    code, log, secs = launch_runner(
+        ["-np", "1", "--", sys.executable, me, "--elastic-worker", "static",
+         out], token=out)
+    if code != 0:
+        raise AssertionError(f"static launch exited {code}:\n{log[-6000:]}")
+    static = json.load(open(out))
+    static.update(phase="elastic_static_launch", launcher_seconds=secs,
+                  in_process_losses=want, ok=static["losses"] == want)
+    emit(static)
+    if not static["ok"]:
+        raise AssertionError("a launched worker's losses differ from the "
+                             "same steps run in-process")
+
+    # 2. elastic launch at size 1: driver, rendezvous, notification
+    # service, heartbeats, a TorchState commit (durable) every step
+    script = os.path.join(work, "discover.sh")
+    with open(script, "w") as f:
+        f.write("#!/bin/sh\necho localhost:1\n")
+    os.chmod(script, 0o755)
+    out = os.path.join(work, "elastic.json")
+    code, log, secs = launch_runner(
+        ["-np", "1", "--min-np", "1", "--host-discovery-script", script,
+         "--", sys.executable, me, "--elastic-worker", "elastic", out],
+        token=out)
+    if code != 0:
+        raise AssertionError(f"elastic launch exited {code}:\n{log[-6000:]}")
+    el = json.load(open(out))
+    el.update(phase="elastic_launch", launcher_seconds=secs,
+              in_process_losses=want,
+              state_dir_removed=not os.path.exists(el["state_dir"]),
+              ok=el["losses"] == want and el["elastic_env"] == "1"
+              and len(el["commit_save_ms"]) == ELASTIC_STEPS
+              and el["flash_launches"] == cfg.num_layers * ELASTIC_STEPS)
+    emit(el)
+    if not el["ok"]:
+        raise AssertionError("the elastic launch at size 1 misbehaved")
+
+    # 3. the reset in-process at full width, on NCCL
+    hvd.init()
+    ref, tokens, targets = _train_bundle(torch, cfg)
+    ref_losses = [ref.step(tokens, targets).item()
+                  for _ in range(RESET_STEPS)]
+    ref_params = {k: v.clone() for k, v in ref.model.state_dict().items()}
+    ref.optimizer.remove_hooks()
+    del ref
+    torch.cuda.empty_cache()
+    bundle, tokens, targets = _train_bundle(torch, cfg, broadcast=False)
+    state = hvd.elastic.TorchState(bundle.model, bundle.optimizer, step=0)
+    record = {"losses": [], "commit_save_ms": []}
+    restarts = metrics.snapshot().get("hvd_tpu_worker_restarts_total", 0)
+    old_world = basics.world()
+
+    def equal_to_snapshot():
+        saved = state._saved_state
+        live = bundle.model.state_dict()
+        ok = all(torch.equal(live[k].cpu(), saved["model"][k])
+                 for k in live)
+        live_opt = bundle.optimizer.state_dict()["state"]
+        for i, entry in saved["optimizer"]["state"].items():
+            ok = ok and all(torch.equal(live_opt[i][k].cpu(), v)
+                            for k, v in entry.items())
+        return ok
+
+    def body(state):
+        if "reset_ms" in record and "equal_after_reset" not in record:
+            record["equal_after_reset"] = equal_to_snapshot()
+            record["step_at_reentry"] = state.step
+        while state.step < RESET_STEPS:
+            record["losses"].append(bundle.step(tokens, targets).item())
+            state.step += 1
+            state.commit()
+            record["commit_save_ms"].append(
+                1e3 * state.last_commit_seconds[0])
+            if state.step == RESET_AFTER and "reset_ms" not in record:
+                raise HostsUpdatedInterrupt()
+
+    def timed_reset(state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_mod.reset(state)
+        torch.cuda.synchronize()
+        record["reset_ms"] = 1e3 * (time.perf_counter() - t0)
+
+    fa.LAUNCHES["flash_fwd"] = 0
+    hvd.elastic.run_fn(body, timed_reset)(state)
+    reset_launches = fa.LAUNCHES["flash_fwd"]
+    final = bundle.model.state_dict()
+    same_final = all(torch.equal(final[k], ref_params[k]) for k in final)
+    new_world = basics.world()
+    result = {
+        "phase": "elastic_reset", "steps": RESET_STEPS,
+        "interrupted_after_step": RESET_AFTER,
+        "reset_ms": record["reset_ms"],
+        "commit_save_ms": record["commit_save_ms"],
+        "step_at_reentry": record.get("step_at_reentry"),
+        "state_equal_to_commit_after_reset":
+            record.get("equal_after_reset", False),
+        "final_params_equal_uninterrupted": same_final,
+        "losses": record["losses"], "uninterrupted_losses": ref_losses,
+        "new_world": new_world is not old_world,
+        "backend": new_world.backend,
+        "restarts": metrics.snapshot().get(
+            "hvd_tpu_worker_restarts_total", 0) - restarts,
+        "flash_launches": reset_launches}
+    result["ok"] = (result["state_equal_to_commit_after_reset"]
+                    and same_final and result["new_world"]
+                    and result["backend"] == "nccl"
+                    and result["restarts"] == 1
+                    and result["step_at_reentry"] == RESET_AFTER
+                    and reset_launches == cfg.num_layers * RESET_STEPS)
+    emit(result)
+    bundle.optimizer.remove_hooks()
+    hvd.shutdown()
+    shutil.rmtree(work, ignore_errors=True)
+    if not result["ok"]:
+        raise AssertionError("the in-process reset misbehaved")
+    return {"elastic_static": static["flash_launches"],
+            "elastic_launch": el["flash_launches"],
+            "elastic_reset": reset_launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1275,13 +1542,17 @@ def main() -> int:
     # last: its join() leaves this process contributing zeros
     collectives_phase(torch, hvd, collectives, bundle)
     hvd.shutdown()
+    del bundle
+    torch.cuda.empty_cache()
+    elastic_launches = elastic_phase(torch, fa, cfg, losses)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{**{key: row[key] for key in keys},
                        "launches_by_path": {"train": row["launches"],
                                             "ring": ring_launches,
-                                            "tensor_parallel": tp_launches},
+                                            "tensor_parallel": tp_launches,
+                                            **elastic_launches},
                        "tensor_parallel_bh24": {
                            key: tp_row[key] for key in (
                                "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1293,4 +1564,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--elastic-worker"]:
+        sys.exit(elastic_worker(sys.argv[2], sys.argv[3]))
     sys.exit(main())

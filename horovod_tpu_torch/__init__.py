@@ -52,3 +52,14 @@ from .sparse import (  # noqa: F401
     sparse_to_dense,
 )
 from .sync_batch_norm import SyncBatchNorm, sync_batch_norm_stats  # noqa: F401
+
+
+def __getattr__(name):
+    # the elastic package and the launcher load on first use
+    # (``hvd.elastic.run``): importlib, not ``from . import x``, whose
+    # fromlist lookup would re-enter this __getattr__
+    if name in ("elastic", "runner"):
+        import importlib
+        return importlib.import_module("." + name, __name__)
+    raise AttributeError(
+        f"module 'horovod_tpu_torch' has no attribute {name!r}")

@@ -14,6 +14,17 @@ the stall inspector — start with the world and stop with ``shutdown()``.
 The port runs on CUDA unless the caller asks for the CPU
 (``device="cpu"``); with no card and no such request, entry points raise.
 
+Two bounds, from the JAX package's knobs: the rendezvous (every rank
+reaching the TCP store rank 0 hosts) waits at most
+``INIT_TIMEOUT_SECONDS``; every wire call of the process group waits at
+most ``HEARTBEAT_TIMEOUT_SECONDS`` for its peers (:func:`wire_timeout`),
+so a dead or wedged peer fails the survivors' next call instead of
+blocking them for torch's default (30 min on gloo, 10 on NCCL). The
+elastic reset (``elastic/run.py``) relies on both: it calls
+:func:`shutdown` and :func:`init` again in the same process. A world
+whose wire calls failed (:func:`mark_failed`) is aborted, not destroyed,
+on NCCL: its communicators may still hold a call no peer will answer.
+
 Rank semantics follow the reference's one-process-per-GPU model: a
 process drives one device, so ``device_count()`` is the world size and
 ``local_device_count()`` is 1. ``init(comm=)`` (an mpi4py communicator)
@@ -21,6 +32,7 @@ is not ported.
 """
 
 import dataclasses
+import datetime
 import socket
 import threading
 from typing import Any, Dict, List, Optional, Sequence
@@ -60,6 +72,10 @@ class World:
     join_round_log: List[tuple] = dataclasses.field(default_factory=list)
     join_last_round: List[tuple] = dataclasses.field(default_factory=list)
     join_active_rounds: int = 0
+    #: the TCP store of the process group (rank 0 listens on it)
+    store: Any = None
+    #: True once a wire call failed (mark_failed): shutdown() aborts
+    failed: bool = False
     lock: threading.Lock = dataclasses.field(default_factory=threading.Lock)
 
 
@@ -139,18 +155,25 @@ def init(process_sets: Optional[Sequence[Sequence[int]]] = None,
             if not 0 <= pid < n:
                 raise ValueError(f"rank {pid} out of range for world size "
                                  f"{n}: set HVD_TPU_RANK")
-            url = f"tcp://{addr}"
+            host, _, port = addr.rpartition(":")
         else:
             n, pid = 1, 0
-            url = f"tcp://127.0.0.1:{_free_port()}"
+            host, port = "127.0.0.1", _free_port()
+        store = dist.TCPStore(
+            host, int(port), world_size=n, is_master=pid == 0,
+            timeout=datetime.timedelta(
+                seconds=cfg.get(_config.INIT_TIMEOUT_SECONDS)))
         kwargs = {"device_id": dev} if dev.type == "cuda" else {}
-        dist.init_process_group(backend, init_method=url, world_size=n,
-                                rank=pid, **kwargs)
+        dist.init_process_group(
+            backend, store=store, world_size=n, rank=pid,
+            timeout=datetime.timedelta(seconds=wire_timeout(cfg)),
+            **kwargs)
         from .mesh import WorldMesh
         from .response_cache import ResponseCache
         from .stall import StallInspector
         from .tensor_table import TensorTable
-        w = World(config=cfg, device=dev, backend=backend, rank=pid, size=n)
+        w = World(config=cfg, device=dev, backend=backend, rank=pid, size=n,
+                  store=store)
         w.tensor_table = TensorTable(w)
         w.response_cache = ResponseCache(cfg.get(_config.CACHE_CAPACITY))
         w.world_mesh = WorldMesh(range(n))
@@ -162,10 +185,29 @@ def init(process_sets: Optional[Sequence[Sequence[int]]] = None,
         _world = w
 
 
+def wire_timeout(cfg: Optional[_config.Config] = None) -> float:
+    """Seconds a wire call waits for its peers: HEARTBEAT_TIMEOUT_SECONDS,
+    or when that is negative (auto) 60 under an elastic launch and 100
+    otherwise (see the knob's help)."""
+    cfg = cfg or _config.Config()
+    t = cfg.get(_config.HEARTBEAT_TIMEOUT_SECONDS)
+    if t < 0:
+        t = 60.0 if cfg.get(_config.ELASTIC) else 100.0
+    return float(t)
+
+
+def mark_failed() -> None:
+    """Record that a wire call of this world failed, so that
+    :func:`shutdown` aborts the process group instead of destroying it."""
+    w = _world
+    if w is not None:
+        w.failed = True
+
+
 def shutdown() -> None:
     """Stop the dispatcher thread and the stall inspector and tear down
-    the process groups. Safe to call twice; init() may be called again
-    after it."""
+    the process groups: destroyed, or on NCCL aborted when a wire call
+    failed. Safe to call twice; init() may be called again after it."""
     global _world
     with _lock:
         w = _world
@@ -175,7 +217,13 @@ def shutdown() -> None:
             w.dispatcher.stop()
         w.stall_inspector.stop()
         _world = None
-        dist.destroy_process_group()
+        if w.failed and w.backend == "nccl":
+            from torch.distributed import distributed_c10d
+            distributed_c10d._abort_process_group()
+        else:
+            dist.destroy_process_group()
+        w.store = None   # close rank 0's listening socket now, even if a
+        #                  caller still holds the old World
 
 
 def is_initialized() -> bool:

@@ -279,6 +279,8 @@ class _Dispatcher:
             h.result = fn()
         except Exception as e:  # noqa: BLE001 — surfaced at synchronize
             h.error = _wrap_error(e)
+            if isinstance(h.error, HorovodInternalError):
+                _basics.mark_failed()
         finally:
             h.event.set()
 

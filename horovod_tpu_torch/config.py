@@ -113,6 +113,172 @@ CHECKPOINT_KEEP_PERIOD = _register(
          "HVD_TPU_CHECKPOINT_KEEP. 0 (default) disables the rule.")
 
 
+# -- The launcher and elastic training (runner/, elastic/): the same names,
+#    aliases and defaults as horovod_tpu/config.py. The launcher writes the
+#    first group from its flags (runner/config_parser.py); the port's
+#    timeline and autotuner, not ported yet, are what read them. ----------
+CYCLE_TIME = _register(
+    "CYCLE_TIME", 1.0, float, alias="HOROVOD_CYCLE_TIME",
+    help="Async-coordinator cycle time in milliseconds.")
+LOG_LEVEL = _register(
+    "LOG_LEVEL", "warning", str, alias="HOROVOD_LOG_LEVEL",
+    help="trace/debug/info/warning/error/fatal.")
+TIMELINE = _register(
+    "TIMELINE", "", str, alias="HOROVOD_TIMELINE",
+    help="Path for chrome://tracing JSON timeline (rank 0 only).")
+TIMELINE_MARK_CYCLES = _register(
+    "TIMELINE_MARK_CYCLES", False, _parse_bool,
+    alias="HOROVOD_TIMELINE_MARK_CYCLES")
+AUTOTUNE = _register(
+    "AUTOTUNE", False, _parse_bool, alias="HOROVOD_AUTOTUNE")
+AUTOTUNE_LOG = _register(
+    "AUTOTUNE_LOG", "", str, alias="HOROVOD_AUTOTUNE_LOG")
+AUTOTUNE_WARMUP_SAMPLES = _register(
+    "AUTOTUNE_WARMUP_SAMPLES", 3, int, alias="HOROVOD_AUTOTUNE_WARMUP_SAMPLES")
+AUTOTUNE_STEPS_PER_SAMPLE = _register(
+    "AUTOTUNE_STEPS_PER_SAMPLE", 10, int,
+    alias="HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE")
+AUTOTUNE_BAYES_OPT_MAX_SAMPLES = _register(
+    "AUTOTUNE_BAYES_OPT_MAX_SAMPLES", 20, int,
+    alias="HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES")
+
+# -- Rendezvous / world (reference env contract HOROVOD_RANK/SIZE/...,
+#    gloo/gloo_context.cc:142-165, set by the launcher gloo_run.py:64-201) ---
+RANK = _register("RANK", -1, int, alias="HOROVOD_RANK")
+RENDEZVOUS_PORT = _register(
+    "RENDEZVOUS_PORT", -1, int, alias="HOROVOD_GLOO_RENDEZVOUS_PORT",
+    help="Port of the launcher's HTTP KV rendezvous server.")
+RENDEZVOUS_ADDR = _register(
+    "RENDEZVOUS_ADDR", "", str,
+    help="Host of the launcher's HTTP KV rendezvous server.")
+RENDEZVOUS_DIR = _register(
+    "RENDEZVOUS_DIR", "", str,
+    help="Directory for the KV rendezvous store's durable write-ahead "
+         "journal + periodic snapshots. Empty (default) keeps the store "
+         "in-memory only (the coordinator is then a single point of "
+         "failure); set it to make the host plane crash-recoverable: a "
+         "restarted coordinator replays snapshot+journal, bumps its "
+         "epoch, and workers re-register instead of wedging on stale "
+         "scoped keys (docs/robustness.md).")
+RENDEZVOUS_SNAPSHOT_EVERY = _register(
+    "RENDEZVOUS_SNAPSHOT_EVERY", 256, int,
+    help="Journal appends between snapshot compactions of the rendezvous "
+         "journal (HVD_TPU_RENDEZVOUS_DIR). Each compaction writes a full "
+         "snapshot atomically and truncates the journal, bounding replay "
+         "time after a coordinator crash. 0 disables compaction (the "
+         "journal grows for the life of the job).")
+ELASTIC = _register("ELASTIC", False, _parse_bool, alias="HOROVOD_ELASTIC")
+ELASTIC_TIMEOUT = _register(
+    "ELASTIC_TIMEOUT", 600.0, float, alias="HOROVOD_ELASTIC_TIMEOUT",
+    help="Seconds the elastic driver waits for the minimum slot count "
+         "before giving up (reference HOROVOD_ELASTIC_TIMEOUT).")
+ELASTIC_DURABLE_COMMITS = _register(
+    "ELASTIC_DURABLE_COMMITS", True, _parse_bool,
+    help="Persist every elastic State.commit() to the job state dir so a "
+         "hard-killed worker's respawn restores its last commit. Set 0 to "
+         "skip the synchronous pickle+write for huge per-batch states "
+         "(recovery then degrades to the rank-0 broadcast).")
+HEARTBEAT_TIMEOUT_SECONDS = _register(
+    "HEARTBEAT_TIMEOUT_SECONDS", -1.0, float,
+    help="Bound on each wire call of the process group (the timeout= "
+         "init() passes to torch.distributed): how long a surviving "
+         "worker blocks on a dead or wedged peer before the call fails "
+         "(gloo raises, which the verbs surface as HorovodInternalError; "
+         "NCCL's watchdog aborts the communicator and, by default, ends "
+         "the process). Default -1 = auto: 60 s under an elastic launch "
+         "(a driver exists to respawn survivors; the bound still covers a "
+         "healthy full-width step's skew between ranks: a first kernel "
+         "build, a durable 1.3 GB commit) and 100 s otherwise, the JAX "
+         "package's non-elastic value. The reference's analogous knob is "
+         "HOROVOD_GLOO_TIMEOUT_SECONDS, gloo_context.cc:65-68, which here "
+         "bounds the rendezvous (INIT_TIMEOUT_SECONDS).")
+SHUTDOWN_TIMEOUT_SECONDS = _register(
+    "SHUTDOWN_TIMEOUT_SECONDS", 60.0, float,
+    help="Coordination-service shutdown barrier timeout of the JAX "
+         "package; kept so one environment drives both packages (the "
+         "port's shutdown has no barrier).")
+HEARTBEAT_INTERVAL = _register(
+    "HEARTBEAT_INTERVAL", 5.0, float,
+    help="Seconds between host-plane heartbeat PUTs from each elastic "
+         "worker to the rendezvous KV store (scope 'heartbeat'). 0 "
+         "disables the heartbeat/liveness layer. Distinct from "
+         "HVD_TPU_HEARTBEAT_TIMEOUT_SECONDS, which tunes the JAX "
+         "data-plane coordination service: this layer lets the *launcher* "
+         "detect a silently-hung worker (process alive, not "
+         "participating) and blacklist its host without waiting for a "
+         "stall deadline.")
+HEARTBEAT_TIMEOUT = _register(
+    "HEARTBEAT_TIMEOUT", 60.0, float,
+    help="Seconds without a heartbeat after which the elastic driver "
+         "declares a worker's host dead and triggers the existing "
+         "blacklist -> re-rendezvous flow. Detection is bounded by "
+         "timeout + one monitor poll (< 2x this value). Only armed once "
+         "a worker's first beat arrives, and cleared per generation, so "
+         "slow startups and re-execs are never misdeclared.")
+ELASTIC_SCALE_UP_DELAY = _register(
+    "ELASTIC_SCALE_UP_DELAY", 0.0, float,
+    help="Seconds a grow-only membership delta must persist across "
+         "discovery polls before the elastic driver interrupts the "
+         "running generation to grow into the new capacity — the "
+         "debounce that keeps one flapping discovery poll from "
+         "triggering a resize. 0 (default) grows on the first poll "
+         "(the pre-policy behavior). Shrinks (host lost or draining) "
+         "always interrupt immediately.")
+ELASTIC_SCALE_DOWN_POLICY = _register(
+    "ELASTIC_SCALE_DOWN_POLICY", "drain", str,
+    help="How the elastic driver handles a preemption notice: 'drain' "
+         "(default) gracefully retires the host — final commit flushed, "
+         "heartbeat tracking dropped, survivors re-rendezvous and "
+         "restore its shards via resharding, host stays re-admittable — "
+         "while 'immediate' fires the legacy kill path (host event -> "
+         "worker exit -> FAILURE -> blacklist).")
+MESH_SHAPE = _register(
+    "MESH_SHAPE", "", str,
+    help="Process-level parallelism mesh the elastic driver plans over, "
+         "as an 'axis=size' comma list over (dp, fsdp, pp, ep, sp, tp) — "
+         "e.g. 'dp=2,fsdp=2', or 'dp=-1,fsdp=2' to absorb the first "
+         "generation's world size into dp. Empty (default) disables the "
+         "driver's mesh plane: membership changes replan only the flat "
+         "world size. When set, every generation the driver recomputes "
+         "the mesh from the survivor count (MESH_RESHAPE_POLICY) and "
+         "publishes it to the journaled 'mesh' rendezvous scope for "
+         "workers to adopt on reset.")
+RETRY_MAX_ATTEMPTS = _register(
+    "RETRY_MAX_ATTEMPTS", 5, int,
+    help="Total attempts (first call + retries) for transient host-plane "
+         "failures (rendezvous KV ops, worker registration, dispatcher "
+         "host-plane staging).")
+RETRY_INITIAL_BACKOFF = _register(
+    "RETRY_INITIAL_BACKOFF", 0.05, float,
+    help="Base backoff in seconds; retry k sleeps uniform(0, "
+         "min(RETRY_MAX_BACKOFF, RETRY_INITIAL_BACKOFF * 2**(k-1))) "
+         "(capped exponential backoff with full jitter).")
+RETRY_MAX_BACKOFF = _register(
+    "RETRY_MAX_BACKOFF", 2.0, float,
+    help="Upper bound in seconds on any single retry backoff.")
+RETRY_DEADLINE = _register(
+    "RETRY_DEADLINE", 60.0, float,
+    help="Overall per-call retry budget in seconds; a retry that would "
+         "overrun it surfaces the last error instead of sleeping.")
+
+# -- Checkpointing (no reference equivalent — the reference delegates to
+#    rank-0 framework checkpoints; checkpointing/ is the TPU-pod-scale
+#    subsystem: async snapshot-then-persist, sharded writes, manifests) ------
+CHECKPOINT_MAX_INFLIGHT = _register(
+    "CHECKPOINT_MAX_INFLIGHT", 2, int,
+    help="Bound on async checkpoint saves snapshotted but not yet "
+         "persisted. A training loop that outruns storage blocks in "
+         "save() once the queue is full (backpressure) instead of "
+         "accumulating unbounded host-RAM copies of the model.")
+HTTP_READ_TIMEOUT = _register(
+    "HTTP_READ_TIMEOUT", 30.0, float,
+    help="Per-connection socket read/write deadline (seconds) on the "
+         "shared async HTTP front-end (rendezvous KV, metrics, serving, "
+         "fleet router). Bounds how long a slow-loris client that starts "
+         "a request and stalls can pin a worker thread, and how long a "
+         "wedged client can stall a response write. 0 disables the "
+         "deadline.")
+
 class Config:
     """Resolves knob values: programmatic override > env(HVD_TPU_) >
     env(alias) > default."""

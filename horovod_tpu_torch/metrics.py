@@ -5,11 +5,14 @@ A thread-safe registry of counters, gauges and fixed-bucket histograms,
 with the JAX package's family names, labels, text exposition and
 snapshot form, so both packages export the same series. Only the
 registry is here, in the pure-Python form (the JAX package's cells may be
-backed by its native runtime, which the port does not have); the HTTP
-exporter and the cross-rank summary come with the port's serving plane.
+backed by its native runtime, which the port does not have), with the
+HTTP exporter the elastic launcher serves its counters on; the
+cross-rank summary and the workers' own endpoint come with the port's
+telemetry.
 
-Read paths: :func:`snapshot` (a plain dict of every series, sorted) and
-:func:`render_prometheus` (text format 0.0.4). The registry is
+Read paths: :func:`snapshot` (a plain dict of every series, sorted),
+:func:`render_prometheus` (text format 0.0.4) and
+:func:`start_http_server` (``GET /metrics``). The registry is
 process-global and survives ``shutdown()``/``init()`` cycles.
 """
 
@@ -373,3 +376,41 @@ def snapshot() -> Dict[str, object]:
 
 def render_prometheus() -> str:
     return REGISTRY.render_prometheus()
+
+
+def start_http_server(port: int, addr: str = "0.0.0.0",
+                      registry: Optional[Registry] = None):
+    """Serve ``GET /metrics`` (Prometheus text format) on ``port``.
+    Returns the server object; ``stop_http_server(server)`` tears it
+    down. A daemon thread serves (shared stdlib plumbing in
+    :mod:`horovod_tpu_torch._http`), so a wedged scraper never blocks
+    training."""
+    from . import _http
+
+    reg = registry or REGISTRY
+
+    class _Handler(_http.QuietHandler):
+        def do_GET(self):  # noqa: N802 — BaseHTTPRequestHandler contract
+            path = self.path.split("?", 1)[0]
+            if path not in ("/metrics", "/"):
+                self.send_response(404)
+                # HTTP/1.1 keep-alive (QuietHandler): a bodyless reply
+                # still needs an explicit length or the client hangs
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+                return
+            body = reg.render_prometheus().encode("utf-8")
+            self.send_response(200)
+            self.send_header(
+                "Content-Type", "text/plain; version=0.0.4; charset=utf-8")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+    return _http.start_server(_Handler, port=port, addr=addr,
+                              name="hvd-tpu-metrics-http")
+
+
+def stop_http_server(server) -> None:
+    from . import _http
+    _http.stop_server(server)

@@ -238,6 +238,16 @@ class DistributedOptimizer:
         the reduced gradients back."""
         self._flush_and_drain()
 
+    def abandon_step(self) -> None:
+        """Forget the staged gradients and in-flight handles of a step
+        that will not complete (the elastic reset: its handles belong to
+        a world that is gone). The next backward starts a fresh step."""
+        self._handles = []
+        self._bucket_ready = {}
+        self._fired_ids = set()
+        self._pass_count = {}
+        self._ctxs = {}
+
     def step(self, closure=None):
         self.synchronize()
         return self._opt.step(closure)

@@ -55,6 +55,8 @@ class StallInspector:
         """Called from synchronize(); raises once the shutdown deadline
         was hit."""
         if self._shutdown_deadline_hit:
+            from . import basics
+            basics.mark_failed()
             raise StallError(
                 "horovod_tpu_torch: collective stalled beyond "
                 "HVD_TPU_STALL_SHUTDOWN_TIME_SECONDS; shutting down.")

@@ -70,6 +70,51 @@ def test_imports_with_jax_blocked():
     assert r.stdout.startswith("imported")
 
 
+def test_launcher_and_elastic_import_with_jax_blocked(tmp_path):
+    """The launcher and the elastic package (and every module they load)
+    import with jax and the JAX package blocked, and none of the modules
+    loaded is the JAX package's; --check-build runs so too."""
+    code = (
+        "import sys\n"
+        f"for m in {sorted(FORBIDDEN)!r}:\n"
+        "    sys.modules[m] = None\n"
+        "import horovod_tpu_torch as hvd\n"
+        "import horovod_tpu_torch.runner, horovod_tpu_torch.elastic\n"
+        "import horovod_tpu_torch.runner.run_task\n"
+        "import horovod_tpu_torch.elastic.launcher\n"
+        "import horovod_tpu_torch.sdc, horovod_tpu_torch.retry\n"
+        "import horovod_tpu_torch._http\n"
+        "from horovod_tpu_torch.elastic import TorchState, run\n"
+        "assert hvd.elastic.TorchState is TorchState\n"
+        "bad = [m for m, mod in sys.modules.items() if mod is not None\n"
+        "       and m.split('.')[0] in ('horovod_tpu', 'jax', 'flax')]\n"
+        "assert not bad, bad\n"
+        "print(sorted(m for m in sys.modules\n"
+        "             if m.startswith(('horovod_tpu_torch.runner',\n"
+        "                              'horovod_tpu_torch.elastic'))))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    for mod in ("runner.launch", "runner.rendezvous", "runner.exec_run",
+                "runner.api", "elastic.driver", "elastic.run",
+                "elastic.state", "elastic.launcher", "elastic.worker"):
+        assert f"'horovod_tpu_torch.{mod}'" in r.stdout, mod
+    # the CLI: a site hook blocks the forbidden packages in the launcher
+    # process itself
+    block = str(tmp_path)
+    with open(os.path.join(block, "sitecustomize.py"), "w") as f:
+        f.write("import sys\n"
+                f"for m in {sorted(FORBIDDEN)!r}:\n"
+                "    sys.modules[m] = None\n")
+    env = dict(os.environ, PYTHONPATH=block + os.pathsep + ROOT)
+    r = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.runner", "--check-build"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert "horovod_tpu_torch v" in r.stdout and "PyTorch" in r.stdout
+
+
 def test_cnn_zoo_and_benchmark_import_with_jax_blocked():
     code = (
         "import sys\n"
