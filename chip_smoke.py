@@ -96,6 +96,24 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
    completes 4 steps. The state on re-entry must equal the commit
    (torch.equal, parameters and AdamW state) and the final parameters an
    uninterrupted 4-step run's (torch.equal); prints the reset's ms.
+12. estimator: Estimator.fit on the default config at full width through
+   the flash kernel, NCCL at size 1, one epoch of 32 sequences x 2048
+   from seed 0 (4 steps at batch 8), the default Adam. (a) Its per-step
+   losses and final parameters equal, bit for bit, a hand loop over the
+   same data.batches order with the same model, DistributedOptimizer(Adam)
+   and loss; 12 flash launches a step; its steady step ms beside the train
+   phase's. (b) The same fit under the SDC guard with fingerprints every
+   step and a bitflip in the second step's local gradients: the guard
+   trips once, the batch is retried, no rollback, and the parameters
+   equal (a)'s (torch.equal); prints the guard's and the fingerprint
+   fold's ms a call beside the time to read the 444.5 MB of parameters
+   once at the card's bandwidth. (c) That fit's epoch-end checkpoint
+   restores equal to (a)'s parameters. (d) predict on 3 and 5 rows
+   (buckets 4 and 8): the rows equal the live rows of a forward at the
+   padded shape, and lie within TOL_PREDICT_REL of an unpadded forward.
+   (e) The fit again in a world made with HVD_TPU_AUTOTUNE and small
+   sample settings: the threshold changes, the buckets are re-planned,
+   and the losses and parameters equal (a)'s bit for bit.
 
 Then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a
@@ -745,7 +763,7 @@ def train_main_path(torch, hvd, fa, collectives, cfg, tokens, targets):
                              f"{cfg.num_layers * TRAIN_STEPS}")
     if allreduces <= 0:
         raise AssertionError("no allreduce was launched")
-    return launches, losses, bundle
+    return launches, losses, bundle, result["ms_per_step_steady"]
 
 
 def train_default_reference(torch, cfg, tokens, targets, flash_losses):
@@ -1492,6 +1510,241 @@ def elastic_phase(torch, fa, cfg, main_losses):
             "elastic_reset": reset_launches}
 
 
+# -- estimator phase ---------------------------------------------------------
+
+EST_SEQS = 32            # sequences of the epoch: 4 steps at batch 8
+# predict rows (bf16 activations, fp32 logits) against an unpadded
+# forward: the same model at another M, where cuBLAS may pick another
+# algorithm and so round some bf16 activations the other way; each
+# element then carries a few bf16 roundings (2^-8 each) more or less:
+# relative L2 within 2^-7, as the tp layer's
+TOL_PREDICT_REL = 2.0 ** -7
+AUTOTUNE_SETTINGS = {"AUTOTUNE": True, "AUTOTUNE_WARMUP_SAMPLES": 1,
+                     "AUTOTUNE_STEPS_PER_SAMPLE": 1,
+                     "AUTOTUNE_BAYES_OPT_MAX_SAMPLES": 2}
+
+
+def _estimator_model(torch, cfg):
+    """The default config at full width with the flash kernel, weights
+    from seed 0 (the same on every call)."""
+    import dataclasses
+    from horovod_tpu_torch.models import Transformer
+    from horovod_tpu_torch.parallel import flash_attention_fn
+    return Transformer(dataclasses.replace(cfg, attention_fn=flash_attention_fn),
+                       device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(0))
+
+
+def _fit(torch, fa, est, x, y, **kw):
+    """est.fit for one epoch at batch 8, recording each step's loss and
+    end time; returns (losses, step seconds, flash launches)."""
+    from horovod_tpu_torch.callbacks import Callback
+    losses, ends = [], []
+
+    class Record(Callback):
+        def on_batch_end(self, batch, logs=None):
+            losses.append(logs["loss"])
+            ends.append(time.perf_counter())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fa.LAUNCHES["flash_fwd"] = 0
+    est.fit(x, y, epochs=1, batch_size=BATCH, callbacks=[Record()], **kw)
+    launches = fa.LAUNCHES["flash_fwd"]
+    starts = [t0] + ends[:-1]
+    return losses, [b - a for a, b in zip(starts, ends)], launches
+
+
+def _same_params(torch, model, ref) -> bool:
+    state = model.state_dict()
+    return all(torch.equal(state[k].cpu(), v) for k, v in ref.items())
+
+
+def estimator_phase(torch, fa, cfg, train_ms):
+    """The Estimator on the card (module docstring, phase 12). Returns
+    the flash launches of each of its paths."""
+    import shutil
+    import numpy as np
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import checkpoint, data, faults, metrics, sdc
+    from horovod_tpu_torch.estimator import Estimator, cross_entropy_loss
+    root = os.path.dirname(os.path.abspath(__file__))
+    ckpt_dir = os.path.join(root, "build", "chip_estimator")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    rng = np.random.RandomState(0)
+    seqs = rng.randint(0, cfg.vocab_size, (EST_SEQS, cfg.max_seq_len + 1))
+    x, y = seqs[:, :-1], seqs[:, 1:]
+    hvd.init()
+    launches = {}
+
+    # (a) fit, the default Adam, against a hand loop over the same order
+    est = Estimator(_estimator_model(torch, cfg), seed=0)
+    losses, secs, launches["estimator_fit"] = _fit(torch, fa, est, x, y)
+    fitted = {k: v.detach().cpu().clone() for k, v in est.params.items()}
+    steady_ms = 1e3 * sum(secs[1:]) / len(secs[1:])
+    est._opt.remove_hooks()
+    del est
+    torch.cuda.empty_cache()
+    model = _estimator_model(torch, cfg)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.Adam(model.parameters(), lr=1e-3 * hvd.dp_size()),
+        named_parameters=model.named_parameters())
+    hand = []
+    for bx, by in data.batches((x, y), BATCH, seed=0):
+        opt.zero_grad(set_to_none=True)
+        loss = cross_entropy_loss(model(torch.from_numpy(bx).cuda()),
+                                  torch.from_numpy(by).cuda())
+        loss.backward()
+        opt.step()
+        hand.append(loss.item())
+    same_hand = _same_params(torch, model, fitted)
+    opt.remove_hooks()
+    del model, opt
+    torch.cuda.empty_cache()
+    fit = {"phase": "estimator_fit", "config": "TransformerConfig() default",
+           "sequences": EST_SEQS, "batch": BATCH, "losses": losses,
+           "hand_loop_losses": hand, "params_equal_hand_loop": same_hand,
+           "step_seconds": secs, "ms_per_step_steady": steady_ms,
+           "train_phase_ms_per_step_steady": train_ms,
+           "flash_launches": launches["estimator_fit"]}
+    fit["ok"] = (losses == hand and same_hand
+                 and len(losses) == EST_SEQS // BATCH
+                 and fit["flash_launches"] == cfg.num_layers * len(losses)
+                 and all(math.isfinite(v) for v in losses))
+    emit(fit)
+    if not fit["ok"]:
+        raise AssertionError("Estimator.fit disagrees with the hand loop")
+
+    # (b) + (c): the same fit under the guard, a bitflip in the second
+    # step's local gradients, a checkpoint at the epoch's end
+    env = {"HVD_TPU_SDC_GUARD": "1", "HVD_TPU_SDC_FINGERPRINT_EVERY": "1"}
+    os.environ.update(env)
+    faults.configure("worker.grads:bitflip:step=2:once", seed=0)
+    snap = metrics.snapshot()
+    timings = {"guard": [], "fold": []}
+    check, fold = sdc.StepGuard.check, sdc.fingerprint.fold_fingerprint
+
+    def timed(kind, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            timings[kind].append(1e3 * (time.perf_counter() - t))
+            return out
+        return run
+    sdc.StepGuard.check = timed("guard", check)
+    sdc.fingerprint.fold_fingerprint = timed("fold", fold)
+    try:
+        est = Estimator(_estimator_model(torch, cfg), seed=0,
+                        checkpoint_dir=ckpt_dir)
+        g_losses, g_secs, launches["estimator_guarded"] = _fit(
+            torch, fa, est, x, y)
+    finally:
+        sdc.StepGuard.check = check
+        sdc.fingerprint.fold_fingerprint = fold
+        for k in env:
+            os.environ.pop(k, None)
+        faults.configure("", seed=0)
+    after = metrics.snapshot()
+
+    def delta(key):
+        return after.get(key, 0.0) - snap.get(key, 0.0)
+    same_guarded = _same_params(torch, est.model, fitted)
+    restored = checkpoint.restore(ckpt_dir)
+    same_ckpt = sorted(restored) == sorted(fitted) and all(
+        torch.equal(restored[k], v) for k, v in fitted.items())
+    param_bytes = sum(v.numel() * v.element_size() for v in fitted.values())
+    guarded = {
+        "phase": "estimator_guarded",
+        "fault": "worker.grads:bitflip:step=2:once",
+        "losses": g_losses, "step_seconds": g_secs,
+        "trips": delta('hvd_tpu_sdc_detections_total{kind="nonfinite"}'),
+        "rollbacks": delta("hvd_tpu_sdc_rollbacks_total"),
+        "fingerprint_divergences": delta(
+            'hvd_tpu_sdc_detections_total{kind="fingerprint"}'),
+        "params_equal_unguarded": same_guarded,
+        "guard_ms": timings["guard"], "fold_ms": timings["fold"],
+        "param_bytes": param_bytes,
+        "read_params_once_bound_ms": 1e3 * param_bytes / PEAK_BYTES,
+        "flash_launches": launches["estimator_guarded"],
+        "checkpoint_restores_equal": same_ckpt}
+    guarded["ok"] = (g_losses == losses and same_guarded
+                     and guarded["trips"] == 1 and guarded["rollbacks"] == 0
+                     and guarded["fingerprint_divergences"] == 0
+                     and len(timings["guard"]) == len(losses) + 1
+                     and len(timings["fold"]) == len(losses)
+                     and guarded["flash_launches"]
+                     == cfg.num_layers * (len(losses) + 1)
+                     and same_ckpt)
+    emit(guarded)
+    if not guarded["ok"]:
+        raise AssertionError("the guarded fit, or its checkpoint, "
+                             "misbehaved")
+
+    # (d) predict at buckets 4 and 8
+    rows = {}
+    fa.LAUNCHES["flash_fwd"] = 0
+    for n in (3, 5):
+        rows[n] = est.predict(x[:n])
+    launches["estimator_predict"] = fa.LAUNCHES["flash_fwd"]
+    pred = {"phase": "estimator_predict",
+            "buckets": sorted(est._predict_cache.compiled_buckets),
+            "flash_launches": launches["estimator_predict"],
+            "tol_rel_l2": TOL_PREDICT_REL}
+    exact, rel = True, []
+    with torch.no_grad():
+        for n, got in rows.items():
+            b = est._predict_cache.bucket(n)
+            padded = np.zeros((b, x.shape[1]), x.dtype)
+            padded[:n] = x[:n]
+            at_bucket = est.model(torch.from_numpy(padded).cuda())[:n]
+            exact = exact and torch.equal(got, at_bucket)
+            unpadded = est.model(torch.from_numpy(x[:n]).cuda())
+            rel.append(rel_l2(torch, got, unpadded))
+    pred.update(rows_exact_at_padded_shape=exact, rel_l2_unpadded=rel,
+                shape=list(rows[5].shape))
+    pred["ok"] = (exact and pred["buckets"] == [4, 8]
+                  and all(r <= TOL_PREDICT_REL for r in rel)
+                  and pred["flash_launches"] == cfg.num_layers * 2
+                  and bool(torch.isfinite(rows[5]).all()))
+    emit(pred)
+    est._opt.remove_hooks()
+    del est, rows
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if not pred["ok"]:
+        raise AssertionError("predict disagrees with the forward")
+
+    # (e) autotune: a world whose ParameterManager scores every step
+    hvd.shutdown()
+    hvd.init(config_overrides=AUTOTUNE_SETTINGS)
+    scored = metrics.snapshot().get("hvd_tpu_autotune_samples_total", 0.0)
+    est = Estimator(_estimator_model(torch, cfg), seed=0)
+    t_losses, t_secs, launches["estimator_autotune"] = _fit(
+        torch, fa, est, x, y)
+    plans = est._opt.plans
+    tuned = {"phase": "estimator_autotune", "settings": AUTOTUNE_SETTINGS,
+             "losses": t_losses, "untuned_losses": losses,
+             "step_seconds": t_secs,
+             "thresholds": [t for t, _ in plans],
+             "buckets_per_plan": [len(b) for _, b in plans],
+             "samples_scored": metrics.snapshot().get(
+                 "hvd_tpu_autotune_samples_total", 0.0) - scored,
+             "params_equal_untuned": _same_params(torch, est.model, fitted),
+             "flash_launches": launches["estimator_autotune"]}
+    tuned["ok"] = (t_losses == losses and tuned["params_equal_untuned"]
+                   and tuned["samples_scored"] >= 2 and len(plans) >= 2
+                   and len(set(tuned["thresholds"])) >= 2)
+    emit(tuned)
+    est._opt.remove_hooks()
+    del est
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+    if not tuned["ok"]:
+        raise AssertionError("the autotuned fit misbehaved")
+    return launches, steady_ms
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1533,7 +1786,7 @@ def main() -> int:
                          generator=torch.Generator(device="cuda")
                          .manual_seed(1), device="cuda")
     tokens, targets = data[:, :-1], data[:, 1:]
-    row["launches"], losses, bundle = train_main_path(
+    row["launches"], losses, bundle, train_ms = train_main_path(
         torch, hvd, fa, collectives, cfg, tokens, targets)
     train_default_reference(torch, cfg, tokens, targets, losses)
     checkpoint_phase(torch, bundle, tokens, targets)
@@ -1545,6 +1798,7 @@ def main() -> int:
     del bundle
     torch.cuda.empty_cache()
     elastic_launches = elastic_phase(torch, fa, cfg, losses)
+    estimator_launches, _ = estimator_phase(torch, fa, cfg, train_ms)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1552,7 +1806,8 @@ def main() -> int:
                        "launches_by_path": {"train": row["launches"],
                                             "ring": ring_launches,
                                             "tensor_parallel": tp_launches,
-                                            **elastic_launches},
+                                            **elastic_launches,
+                                            **estimator_launches},
                        "tensor_parallel_bh24": {
                            key: tp_row[key] for key in (
                                "ms", "plain_ms", "bound_ms", "bound_by",

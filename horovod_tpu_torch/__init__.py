@@ -55,10 +55,15 @@ from .sync_batch_norm import SyncBatchNorm, sync_batch_norm_stats  # noqa: F401
 
 
 def __getattr__(name):
-    # the elastic package and the launcher load on first use
-    # (``hvd.elastic.run``): importlib, not ``from . import x``, whose
-    # fromlist lookup would re-enter this __getattr__
-    if name in ("elastic", "runner"):
+    # the Estimator and these subpackages load on first use
+    # (``hvd.Estimator``, ``hvd.elastic.run``, ``hvd.callbacks``), as in
+    # the JAX package: importlib, not ``from . import x``, whose fromlist
+    # lookup would re-enter this __getattr__
+    if name == "Estimator":
+        from .estimator import Estimator
+        return Estimator
+    if name in ("elastic", "runner", "callbacks", "data", "sdc",
+                "checkpoint", "checkpointing", "serving"):
         import importlib
         return importlib.import_module("." + name, __name__)
     raise AttributeError(

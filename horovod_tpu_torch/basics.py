@@ -10,6 +10,9 @@ process is a world of one, rendezvousing with itself on a free localhost
 port. ``init(process_sets=...)`` makes one process group per set
 (:mod:`.mesh`); the host services — the collective dispatcher thread and
 the stall inspector — start with the world and stop with ``shutdown()``.
+With ``HVD_TPU_AUTOTUNE`` set, ``init()`` also makes the fusion-threshold
+autotuner (:mod:`.parameter_manager`) that ``DistributedOptimizer``
+feeds.
 
 The port runs on CUDA unless the caller asks for the CPU
 (``device="cpu"``); with no card and no such request, entry points raise.
@@ -76,6 +79,9 @@ class World:
     store: Any = None
     #: True once a wire call failed (mark_failed): shutdown() aborts
     failed: bool = False
+    #: the fusion-threshold autotuner (parameter_manager.py), made at init
+    #: when HVD_TPU_AUTOTUNE is set
+    parameter_manager: Any = None
     lock: threading.Lock = dataclasses.field(default_factory=threading.Lock)
 
 
@@ -182,6 +188,8 @@ def init(process_sets: Optional[Sequence[Sequence[int]]] = None,
         for i, ranks in enumerate(process_sets or ()):
             w.process_sets[i] = w.world_mesh.subset(list(ranks))
         w.stall_inspector = StallInspector(w)
+        from .parameter_manager import maybe_create as _maybe_autotune
+        w.parameter_manager = _maybe_autotune(w)
         _world = w
 
 

@@ -49,7 +49,7 @@ The JAX package's in-jit route (``_injit_*``: a verb called on tracers
 lowers to an XLA collective inside the compiled program) has no torch
 counterpart. The metrics, fault sites, retry policy, schedule ledger,
 timeline and request tracing around its dispatch path belong to a later
-slice (ROADMAP A2).
+slice (ROADMAP A4).
 """
 
 import enum

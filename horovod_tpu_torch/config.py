@@ -9,6 +9,7 @@ value falls back to the default).
 
 import dataclasses
 import os
+import re
 from typing import Any, Callable, Dict, Optional
 
 
@@ -36,6 +37,13 @@ def _parse_bool(v: str) -> bool:
 FUSION_THRESHOLD = _register(
     "FUSION_THRESHOLD", 64 * 1024 * 1024, int, alias="HOROVOD_FUSION_THRESHOLD",
     help="Gradient-bucket fusion threshold in bytes (0 disables fusion).")
+PACK_CUTOFF = _register(
+    "PACK_CUTOFF", 256 * 1024, int,
+    help="The JAX package's host-packing cutoff for grouped collectives. "
+         "The port's grouped allreduce packs every member into one "
+         "buffer, so nothing here reads it; the autotuner "
+         "(parameter_manager.py) still tunes it as its second phase, so "
+         "its schedule is the JAX package's.")
 RANK = _register("RANK", -1, int, alias="HOROVOD_RANK")
 SIZE = _register("SIZE", -1, int, alias="HOROVOD_SIZE")
 LOCAL_RANK = _register("LOCAL_RANK", -1, int, alias="HOROVOD_LOCAL_RANK")
@@ -115,8 +123,9 @@ CHECKPOINT_KEEP_PERIOD = _register(
 
 # -- The launcher and elastic training (runner/, elastic/): the same names,
 #    aliases and defaults as horovod_tpu/config.py. The launcher writes the
-#    first group from its flags (runner/config_parser.py); the port's
-#    timeline and autotuner, not ported yet, are what read them. ----------
+#    first group from its flags (runner/config_parser.py). The AUTOTUNE*
+#    knobs are read by parameter_manager.py; CYCLE_TIME, LOG_LEVEL and
+#    TIMELINE* wait for the port's timeline (ROADMAP A4). ----------------
 CYCLE_TIME = _register(
     "CYCLE_TIME", 1.0, float, alias="HOROVOD_CYCLE_TIME",
     help="Async-coordinator cycle time in milliseconds.")
@@ -270,6 +279,39 @@ CHECKPOINT_MAX_INFLIGHT = _register(
          "persisted. A training loop that outruns storage blocks in "
          "save() once the queue is full (backpressure) instead of "
          "accumulating unbounded host-RAM copies of the model.")
+# -- The silent-data-corruption plane (sdc/, estimator.py): the JAX
+#    package's names and defaults. -----------------------------------------
+SDC_GUARD = _register(
+    "SDC_GUARD", False, _parse_bool,
+    help="Enable the silent-data-corruption step guard: every optimizer "
+         "step's gradients and loss pass an all-reduced finite check "
+         "plus a loss-spike EWMA bound before the update is applied. A "
+         "tripped guard skips the step (retried once, then dropped), "
+         "counts hvd_tpu_sdc_detections_total, and feeds the rollback/"
+         "quarantine policy. Off by default (zero overhead).")
+SDC_LOSS_SPIKE_FACTOR = _register(
+    "SDC_LOSS_SPIKE_FACTOR", 10.0, float,
+    help="Loss-spike bound for the SDC step guard: a finite loss "
+         "exceeding factor * EWMA(|loss|) counts as a loss_spike "
+         "detection. <= 0 disables the spike bound (finite checks "
+         "remain).")
+SDC_FINGERPRINT_EVERY = _register(
+    "SDC_FINGERPRINT_EVERY", 0, int,
+    help="Compare cross-replica parameter fingerprints (per-leaf bit "
+         "checksum folded into one scalar) every N guarded steps, "
+         "publishing each rank's value to the schedule-ledger KV scope "
+         "so a divergence names the offending rank. 0 (default) "
+         "disables fingerprinting.")
+SDC_CONFIRM_STEPS = _register(
+    "SDC_CONFIRM_STEPS", 2, int,
+    help="A checkpointed step is promoted to last-good (the SDC "
+         "rollback target) only after the step guard has passed this "
+         "many subsequent steps.")
+SDC_STRIKES = _register(
+    "SDC_STRIKES", 3, int,
+    help="SDC detections charged to one host within the policy window "
+         "before it is reported to the elastic driver and quarantined.")
+
 HTTP_READ_TIMEOUT = _register(
     "HTTP_READ_TIMEOUT", 30.0, float,
     help="Per-connection socket read/write deadline (seconds) on the "
@@ -279,15 +321,86 @@ HTTP_READ_TIMEOUT = _register(
          "wedged client can stall a response write. 0 disables the "
          "deadline.")
 
+#: External-scheduler task-identity families (reference: MPI env detection
+#: that lets bare `mpirun/srun python train.py` work, docs/mpirun.rst), a
+#: copy of the JAX package's table. Each row is (rank, size, local_rank,
+#: local_size) env names. A family is adopted only when BOTH its rank AND
+#: size variables resolve: partial hits are ignored rather than guessed
+#: (PMIX_RANK appears without any size variable on some PMIx launchers,
+#: and sbatch exports SLURM_PROCID=0 to the batch step itself, where the
+#: per-step SLURM_STEP_NUM_TASKS gives size 1). Local entries are
+#: best-effort within the adopted family.
+_MPI_FAMILIES = (
+    ("OMPI_COMM_WORLD_RANK", "OMPI_COMM_WORLD_SIZE",
+     "OMPI_COMM_WORLD_LOCAL_RANK", "OMPI_COMM_WORLD_LOCAL_SIZE"),
+    ("PMIX_RANK", "JSM_NAMESPACE_SIZE",
+     "JSM_NAMESPACE_LOCAL_RANK", "JSM_NAMESPACE_LOCAL_SIZE"),
+    ("SLURM_PROCID", "SLURM_STEP_NUM_TASKS",
+     "SLURM_LOCALID", "SLURM_STEP_TASKS_PER_NODE"),
+    # MPICH / Hydra (also Intel MPI): PMI_* identity plus MPICH's
+    # per-node MPI_LOCAL* pair (runner/mpi_run.py drives this family)
+    ("PMI_RANK", "PMI_SIZE", "MPI_LOCALRANKID", "MPI_LOCALNRANKS"),
+)
+
+
+def mpi_task_identity(environ=None, with_source: bool = False):
+    """{"RANK": r, "SIZE": n, ...} from the first coherent scheduler
+    family, or {} when none applies. Shared by Config.get's fallback and
+    the jsrun shim (runner/lsf.py). ``with_source=True`` returns
+    ``(mapping, rank_var)`` instead, naming the variable that matched."""
+    env = os.environ if environ is None else environ
+
+    def parse(v):
+        # SLURM_STEP_TASKS_PER_NODE can be "4(x2)"; take the leading int
+        return int(str(v).split("(", 1)[0])
+
+    for rank_var, size_var, lrank_var, lsize_var in _MPI_FAMILIES:
+        r, s = env.get(rank_var), env.get(size_var)
+        if r is None or s is None:
+            continue
+        try:
+            out = {"RANK": parse(r), "SIZE": parse(s)}
+        except ValueError:
+            continue
+        for key, var in (("LOCAL_RANK", lrank_var),
+                         ("LOCAL_SIZE", lsize_var)):
+            v = env.get(var)
+            if v is not None:
+                try:
+                    out[key] = parse(v)
+                except ValueError:
+                    pass
+        # MPI launchers export no cross-host identity; with host-major
+        # rank placement and uniform slots the cross pair is the host
+        # index and host count. Non-uniform layouts (size % local_size !=
+        # 0, or a SLURM per-node list such as "2,4") stay unset.
+        ls = out.get("LOCAL_SIZE")
+        raw_ls = env.get(lsize_var, "")
+        uniform_form = re.fullmatch(r"\d+(\(x\d+\))?", str(raw_ls).strip())
+        if ls and ls > 0 and uniform_form and out["SIZE"] % ls == 0:
+            out.setdefault("CROSS_RANK", out["RANK"] // ls)
+            out.setdefault("CROSS_SIZE", out["SIZE"] // ls)
+        return (out, rank_var) if with_source else out
+    return ({}, None) if with_source else {}
+
+
 class Config:
     """Resolves knob values: programmatic override > env(HVD_TPU_) >
-    env(alias) > default."""
+    env(alias) > the scheduler's task identity (rank and size knobs only)
+    > default."""
 
     def __init__(self, overrides: Optional[Dict[str, Any]] = None):
         self._overrides: Dict[str, Any] = dict(overrides or {})
         unknown = set(self._overrides) - set(_REGISTRY)
         if unknown:
             raise KeyError(f"unknown knob(s) {sorted(unknown)}")
+
+    def set(self, name: str, value: Any) -> None:
+        """Override one knob for this Config (the autotuner writes the
+        values it adopts here)."""
+        if name not in _REGISTRY:
+            raise KeyError(f"unknown knob {name!r}")
+        self._overrides[name] = value
 
     def get(self, name: str) -> Any:
         knob = _REGISTRY[name]
@@ -297,6 +410,11 @@ class Config:
         if raw is None and knob.alias is not None:
             raw = os.environ.get(knob.alias)
         if raw is None:
+            if name in (RANK, SIZE, LOCAL_RANK, LOCAL_SIZE, CROSS_RANK,
+                        CROSS_SIZE):
+                ident = mpi_task_identity()
+                if name in ident:
+                    return ident[name]
             return knob.default
         try:
             return knob.parser(raw)

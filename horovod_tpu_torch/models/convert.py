@@ -12,7 +12,7 @@ with the batch statistics as buffers and kernels moved to torch's layout:
 :func:`cnn_params_from_flax` and :func:`cnn_params_to_flax`.
 """
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Iterable, List, Mapping
 
 import numpy as np
 import torch
@@ -142,6 +142,27 @@ def moe_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
 
 
 _STATS = ("mean", "var")
+
+
+def flax_order(names: Iterable[str]) -> List[str]:
+    """``state_dict`` names in the order ``jax.tree_util`` flattens the
+    flax module's nested dict: keys sorted at every level, i.e. names
+    sorted by their dotted path (not the module's registration order).
+    Leaf-indexed things that must agree with the JAX package, such as the
+    SDC fingerprints' chain and the ``worker.grads`` drill's leaf choice,
+    go in this order."""
+    return sorted(names, key=lambda n: tuple(n.split(".")))
+
+
+def flax_view(name: str, t: torch.Tensor) -> torch.Tensor:
+    """``t`` seen in the flax module's layout: a view, so writing to it
+    writes ``t``. A ``kernel`` leaf of the CNN zoo is stored in torch's
+    layout (conv OIHW, dense (out, in)) and is viewed as flax's (HWIO,
+    (in, out)); every other leaf, the transformer's included, already has
+    flax's shape."""
+    if name.rsplit(".", 1)[-1] == "kernel" and t.dim() in (2, 4):
+        return t.permute(2, 3, 1, 0) if t.dim() == 4 else t.t()
+    return t
 
 
 def _torch_layout(a: np.ndarray) -> np.ndarray:

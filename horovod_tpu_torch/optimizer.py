@@ -14,6 +14,16 @@ rest of backward; ``step()`` fires what is left, issues one Join round
 marker in a world of more than one process, drains the handles, writes
 the reduced gradients back and calls the wrapped optimizer's step.
 
+Two modes change when buckets fire. :meth:`DistributedOptimizer.
+hold_gradients` keeps a step's local gradients out of the buckets until
+:meth:`~DistributedOptimizer.release_gradients` (the Estimator's SDC guard
+checks them in between), and :meth:`~DistributedOptimizer.abandon_step`
+drops a step's gradients and buckets. With ``HVD_TPU_AUTOTUNE`` the
+buckets are planned for the autotuner's threshold, each step's reduction
+is timed for it (with a device sync, only while tuning), and the buckets
+are re-planned at the step boundary after the threshold changes
+(``plans`` lists every plan).
+
 ``grad_process_sets`` (the sharded training mesh,
 ``parallel.mesh_utils.grad_process_sets``) gives a parameter's gradient
 its own process set and scale: it is summed over that set and multiplied
@@ -27,6 +37,7 @@ each process steps the wrapped optimizer locally, the parameter deltas
 are Adasum-combined, and the parameters advance by the combined delta.
 """
 
+import time
 import zlib
 from typing import Any, Dict
 
@@ -119,34 +130,50 @@ class DistributedOptimizer:
                 self._hooks.append(
                     p.register_post_accumulate_grad_hook(self._hook))
         self._hooked = hooked
-        ordered = list(reversed(hooked))   # approximate readiness order
-        threshold = _basics.world().config.get(_config.FUSION_THRESHOLD)
         # one reduction (process set, scale) per bucket: without
         # grad_process_sets every gradient shares the world's
-        reduction = {id(p): (None, 1.0) for p in ordered}
+        self._reduction = {id(p): (None, 1.0) for p in hooked}
         if grad_process_sets is not None:
-            reduction.update({id(p): grad_process_sets[self._names[id(p)]]
-                              for p in ordered})
+            self._reduction.update({
+                id(p): grad_process_sets[self._names[id(p)]]
+                for p in hooked})
+        self._sharded = grad_process_sets is not None
+        self._grad_bytes = sum(p.numel() * p.element_size() for p in hooked)
+        #: (threshold, bucket plan as member names) at construction and
+        #: after every re-plan the autotuner caused
+        self.plans = []
+        self._plan(_basics.world().config.get(_config.FUSION_THRESHOLD))
+        # per-step state
+        self._bucket_ready: Dict[int, Dict[int, torch.Tensor]] = {}
+        self._handles: list = []
+        self._fired_ids: set = set()
+        self._holding = False
+        self._held: list = []
+        self._t_first_fire = None
+
+    def _plan(self, threshold: int) -> None:
+        """Plan the buckets for ``threshold``: in reverse registration
+        order (approximate readiness order), one plan per reduction kind,
+        the same on every process."""
+        ordered = list(reversed(self._hooked))
         kinds = []
         for p in ordered:
-            if reduction[id(p)] not in kinds:
-                kinds.append(reduction[id(p)])
+            if self._reduction[id(p)] not in kinds:
+                kinds.append(self._reduction[id(p)])
         self._bucket_members = []
         self._bucket_reduction = []
         for kind in kinds:
-            members = [p for p in ordered if reduction[id(p)] == kind]
+            members = [p for p in ordered if self._reduction[id(p)] == kind]
             buckets = plan_buckets(
                 [(tuple(p.shape), p.dtype) for p in members], threshold)
             self._bucket_members += [[members[i] for i in b]
                                      for b in buckets]
             self._bucket_reduction += [kind] * len(buckets)
-        self._sharded = grad_process_sets is not None
         self._bucket_of = {id(p): bi for bi, b in
                            enumerate(self._bucket_members) for p in b}
-        # per-step state
-        self._bucket_ready: Dict[int, Dict[int, torch.Tensor]] = {}
-        self._handles: list = []
-        self._fired_ids: set = set()
+        self._threshold = threshold
+        self.plans.append((threshold, [[self._names[id(p)] for p in b]
+                                       for b in self._bucket_members]))
 
     # hooks ------------------------------------------------------------------
     def _stage_payload(self, p) -> torch.Tensor:
@@ -170,19 +197,43 @@ class DistributedOptimizer:
         if n < self._bpps:
             return
         ready = self._bucket_ready.get(self._bucket_of[id(p)], {})
-        if id(p) in ready or id(p) in self._fired_ids:
+        if id(p) in ready or id(p) in self._fired_ids \
+                or any(q is p for q in self._held):
             raise AssertionError(
                 "Gradients were computed more than "
                 "backward_passes_per_step times before call to "
                 "step(). Increase backward_passes_per_step to "
                 "accumulate gradients locally (reference: "
                 "torch/optimizer.py:122-126).")
+        if self._holding:
+            self._held.append(p)
+            self._pass_count[id(p)] = 0
+            return
         self._stage(p)
+
+    def hold_gradients(self) -> None:
+        """Keep this step's local gradients out of the buckets until
+        :meth:`release_gradients`: the hooks only note which gradients
+        are ready. The Estimator's SDC guard checks (and its drill
+        corrupts) the local gradients in between, so a poisoned gradient
+        is never averaged into another rank's."""
+        self._holding = True
+
+    def release_gradients(self) -> None:
+        """Stage the held gradients in the order their hooks ran, firing
+        each bucket as it fills (the buckets' order of an unheld step),
+        and stop holding."""
+        self._holding = False
+        held, self._held = self._held, []
+        for p in held:
+            self._stage(p)
 
     def _fire_bucket(self, bid: int) -> None:
         ready = self._bucket_ready.pop(bid, None)
         if not ready:
             return
+        if self._t_first_fire is None:
+            self._t_first_fire = time.perf_counter()
         members = [p for p in self._bucket_members[bid] if id(p) in ready]
         # a stable name across steps (the response cache validates each
         # bucket once), with the member names' digest and the partial
@@ -232,6 +283,26 @@ class DistributedOptimizer:
         self._handles = []
         self._bucket_ready = {}
         self._fired_ids = set()
+        self._autotune_step()
+
+    def _autotune_step(self) -> None:
+        """While the autotuner is active: report this step's gradient
+        bytes and the seconds from its first bucket's fire to the drained
+        result (after a device sync; only while tuning), then re-plan the
+        buckets if the threshold has changed: a step boundary, with no
+        bucket in flight."""
+        t0, self._t_first_fire = self._t_first_fire, None
+        w = _basics.world()
+        pm = w.parameter_manager
+        if pm is None or not pm.active:
+            return
+        if t0 is not None:
+            if w.device.type == "cuda":
+                torch.cuda.synchronize(w.device)
+            pm.record(self._grad_bytes, time.perf_counter() - t0)
+        threshold = w.config.get(_config.FUSION_THRESHOLD)
+        if threshold != self._threshold:
+            self._plan(threshold)
 
     def synchronize(self) -> None:
         """Fire partially ready buckets, wait for every bucket and write
@@ -247,6 +318,9 @@ class DistributedOptimizer:
         self._fired_ids = set()
         self._pass_count = {}
         self._ctxs = {}
+        self._holding = False
+        self._held = []
+        self._t_first_fire = None
 
     def step(self, closure=None):
         self.synchronize()

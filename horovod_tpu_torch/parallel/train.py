@@ -194,11 +194,23 @@ def make_transformer_train_step(
 #    helpers of the same names, which its elastic recovery composes)
 
 def _ensure_optimizer_state(opt) -> None:
-    """Give every parameter of a torch Adam/AdamW its state before the
-    first step, as the optimizer's first step would (zero moments, step
-    0): the train state then has one structure from the start, as an
-    optax state has from ``init``."""
+    """Give every parameter of a torch Adam/AdamW, or of an SGD with
+    momentum, its state before the first step, as the optimizer's first
+    step would (zero moments and step 0; a zero momentum buffer, which
+    the first step turns into the gradient exactly as a missing one): the
+    train state then has one structure from the start, as an optax state
+    has from ``init``, so a checkpoint saved after a step restores into a
+    bundle that has taken none."""
     inner = getattr(opt, "_opt", opt)
+    if isinstance(inner, torch.optim.SGD):
+        for group in inner.param_groups:
+            if group.get("momentum", 0) == 0:
+                continue
+            for p in group["params"]:
+                if inner.state[p].get("momentum_buffer") is None:
+                    inner.state[p]["momentum_buffer"] = torch.zeros_like(
+                        p, memory_format=torch.preserve_format)
+        return
     if not isinstance(inner, (torch.optim.Adam, torch.optim.AdamW)):
         return
     for group in inner.param_groups:

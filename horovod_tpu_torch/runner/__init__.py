@@ -13,7 +13,10 @@ packages' KV clients and servers interoperate). A worker runs on
 ``cuda:<local rank>``, so a host of N cards takes N slots; its
 ``basics.init()`` forms the process group through the TCP store at
 ``HVD_TPU_COORDINATOR_ADDR``, which the rank-0 worker listens on. The
-mpirun and jsrun routes are not ported yet and raise (ROADMAP A2).
+mpirun (``mpi_run.py``) and IBM jsrun (``lsf.py``) routes start the same
+workers through the scheduler's launcher, as the JAX package's do; a
+worker then takes its rank from the scheduler's env
+(``config.mpi_task_identity``).
 """
 
 from .api import run, run_func_result_scope  # noqa: F401

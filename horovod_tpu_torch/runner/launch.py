@@ -9,25 +9,24 @@ host:slots``); a worker drives ``cuda:<local rank>``, so a host of N
 cards takes N slots. ``--check-build`` probes torch and CUDA in a
 killable subprocess.
 
-The mpirun and jsrun routes (``--mpi``, ``--launcher mpi|jsrun``) wait for
-``runner/mpi_run.py`` and ``runner/lsf.py`` (ROADMAP A2) and raise; no
-route falls back to another. ``--launcher auto`` and ``--gloo`` are the
-built-in ssh/local route.
+The route is chosen as the JAX launcher chooses it (:func:`run_controller`):
+``--mpi`` / ``--launcher mpi`` starts the workers through mpirun
+(``runner/mpi_run.py``), ``--launcher jsrun`` through IBM jsrun resource
+sets (``runner/lsf.py``), ``--gloo`` / ``--launcher local`` through the
+built-in ssh/local launcher; ``--launcher auto`` (the default) picks jsrun
+inside an LSF job with jsrun installed, then mpirun when one is installed
+and the job spans remote hosts, then the built-in launcher. An explicit
+route that cannot run raises; none falls back to another.
 """
 
 import argparse
 import os
 import random
+import shutil
 import socket
 import subprocess
 import sys
 from typing import List
-
-#: what the mpirun and jsrun routes raise until they are ported
-ROUTE_NOT_PORTED = (
-    "horovod_tpu_torch.runner: the {route} route is not ported yet "
-    "(runner/{module} waits, ROADMAP A2); use the built-in launcher "
-    "(--gloo, or no launcher flag)")
 
 from . import config_parser
 from .exec_run import is_local_host, launch_workers
@@ -95,12 +94,14 @@ def make_parser() -> argparse.ArgumentParser:
                         "interleaved stdout.")
     g.add_argument("--launcher", choices=("auto", "local", "jsrun", "mpi"),
                    default="auto",
-                   help="Worker spawn mechanism: 'local' and 'auto' = "
-                        "ssh/local exec; 'jsrun' and 'mpi' are not ported "
-                        "yet and raise.")
+                   help="Worker spawn mechanism: 'local' = ssh/local exec, "
+                        "'jsrun' = IBM LSF resource sets (reference "
+                        "js_run.py), 'mpi' = mpirun (reference mpi_run.py), "
+                        "'auto' picks jsrun inside an LSF job when jsrun is "
+                        "installed, else mpirun when installed and the host "
+                        "list spans remote hosts, else local.")
     g.add_argument("--mpi", action="store_true", dest="use_mpi",
-                   help="Shorthand for --launcher mpi (not ported yet: "
-                        "raises).")
+                   help="Shorthand for --launcher mpi (reference --mpi).")
     g.add_argument("--gloo", action="store_true", dest="use_gloo",
                    help="Force the built-in ssh/local launcher. "
                         "Shorthand for --launcher local.")
@@ -238,6 +239,11 @@ def check_build() -> str:
         torch_line = "[ ] PyTorch (probe failed or timed out)"
         cuda_line = "[ ] CUDA unavailable"
         nccl = gloo = " "
+    from .mpi_run import MISSING_IMPL, UNKNOWN_IMPL, get_mpi_implementation
+    mpi_impl = get_mpi_implementation()
+    mpi_mark = " " if mpi_impl in (MISSING_IMPL, UNKNOWN_IMPL) else "X"
+    if mpi_impl == MISSING_IMPL:
+        mpi_impl = "not installed"
     return f"""\
 horovod_tpu_torch v{__version__}:
 
@@ -254,8 +260,8 @@ Hand-written kernels (ops/csrc, built by nvcc on first use):
 
 Launchers:
     [X] local / ssh
-    [ ] mpirun (not ported yet)
-    [ ] LSF jsrun (not ported yet)"""
+    [{mpi_mark}] mpirun ({mpi_impl})
+    [{'X' if shutil.which('jsrun') else ' '}] LSF jsrun"""
 
 
 def _resolve_hosts(args) -> List[HostInfo]:
@@ -265,7 +271,54 @@ def _resolve_hosts(args) -> List[HostInfo]:
         return parse_hosts(args.hosts)
     if args.hostfile:
         return parse_hostfile(args.hostfile)
+    from .lsf import LSFUtils
+    if LSFUtils.using_lsf():
+        # default hosts from the LSF allocation (reference launch.py uses
+        # lsf.LSFUtils the same way when -H/-hostfile are absent)
+        lsf_hosts = LSFUtils.get_compute_hosts()
+        if lsf_hosts:
+            return [HostInfo(h, n) for h, n in lsf_hosts]
     return [HostInfo("localhost", args.np or 1)]
+
+
+def _run_jsrun(args) -> int:
+    """Launch workers through IBM jsrun resource sets (reference:
+    runner/js_run.py:146). The rendezvous lives on the batch host; each
+    task's rank identity is translated from the PMIx env by the
+    ``horovod_tpu_torch.runner.lsf`` shim each task execs through."""
+    from .lsf import make_jsrun_command
+
+    hosts = _resolve_hosts(args)
+    np = args.np or sum(h.slots for h in hosts)
+    rendezvous = RendezvousServer(verbose=args.verbose)
+    rendezvous.start()
+    slots, _size = get_host_assignments(hosts, np)
+    rendezvous.init(slots)
+    try:
+        base_env = config_parser.set_env_from_args(dict(os.environ), args)
+        # the TCP store is BOUND by rank 0, which jsrun places on the
+        # first compute host, not on this batch host: a free_port() probe
+        # here would test the wrong machine, so derive a stable port from
+        # the LSF job id (rationale in stable_coordinator_port)
+        from .mpi_run import stable_coordinator_port
+        coord_host = slots[0].hostname if slots else socket.gethostname()
+        seed = os.environ.get("LSB_JOBID", str(os.getpid()))
+        coord_port = stable_coordinator_port(f"hvd-tpu-coord-{seed}")
+        base_env["HVD_TPU_COORDINATOR_ADDR"] = f"{coord_host}:{coord_port}"
+        base_env["HVD_TPU_SIZE"] = str(np)
+        base_env["HVD_TPU_RENDEZVOUS_ADDR"] = socket.gethostname()
+        base_env["HVD_TPU_RENDEZVOUS_PORT"] = str(rendezvous.port)
+        cmd = make_jsrun_command(
+            [sys.executable, "-m", "horovod_tpu_torch.runner.lsf", "--"]
+            + list(args.command),
+            base_env, num_proc=np, num_hosts=len(hosts))
+        if args.verbose:
+            sys.stderr.write("horovod_tpu_torch.runner: " + " ".join(cmd)
+                             + "\n")
+        proc = subprocess.run(cmd, env={**os.environ, **base_env})
+        return proc.returncode
+    finally:
+        rendezvous.stop()
 
 
 def _run_static(args) -> int:
@@ -303,14 +356,80 @@ def _run_static(args) -> int:
     return 0
 
 
-def _check_route(args) -> None:
-    """Raise for a launcher route that is not ported yet."""
-    if args.use_mpi or args.launcher == "mpi":
-        raise RuntimeError(ROUTE_NOT_PORTED.format(route="mpirun",
-                                                   module="mpi_run.py"))
-    if args.launcher == "jsrun":
-        raise RuntimeError(ROUTE_NOT_PORTED.format(route="jsrun",
-                                                   module="lsf.py"))
+def _run_mpi(args, impl=None) -> int:
+    """Launch workers through mpirun (reference: runner/mpi_run.py). MPI
+    is the process launcher only: each worker recovers its rank from the
+    MPI-set env (``config.mpi_task_identity``) and joins the TCP store
+    whose address is injected into the worker env here."""
+    from .mpi_run import MPISettings, mpi_run
+
+    hosts = _resolve_hosts(args)
+    np = args.np or sum(h.slots for h in hosts)
+    if not args.disable_ssh_check:
+        # mpirun's rsh launcher needs the same passwordless ssh as the
+        # built-in launcher; failing here in seconds beats a password
+        # prompt buried inside ORTE
+        bad = check_ssh([h.hostname for h in hosts], port=args.ssh_port)
+        if bad:
+            raise RuntimeError(
+                f"hosts not reachable over passwordless ssh: {sorted(bad)}")
+    hosts_str = ",".join(f"{h.hostname}:{h.slots}" for h in hosts)
+    settings = MPISettings(
+        num_proc=np,
+        hosts=hosts_str,
+        ssh_port=args.ssh_port,
+        nics=tuple(s.strip() for s in args.nics.split(",") if s.strip())
+        if args.nics else (),
+        extra_mpi_args=args.mpi_args,
+        binding_args=args.binding_args,
+        output_filename=args.output_filename,
+        tcp_flag=args.tcp_flag,
+        verbose=args.verbose,
+    )
+    env = config_parser.set_env_from_args(dict(os.environ), args)
+    return mpi_run(settings, env, list(args.command), impl=impl)
+
+
+def run_controller(use_mpi: bool, mpi_fn, use_jsrun: bool, js_fn,
+                   use_local: bool, local_fn, args=None) -> int:
+    """Select the launch route (reference launch.py:629-659
+    run_controller, with gloo's role played by the built-in ssh/local
+    launcher). Explicit requests win; 'auto' prefers jsrun inside an LSF
+    job, then mpirun when one is installed AND the job spans remote
+    hosts (local single-host jobs gain nothing from MPI), then local/ssh.
+    """
+    from .lsf import LSFUtils, is_jsrun_installed
+    from . import mpi_run as _mpi
+
+    if use_local and (use_mpi or use_jsrun):
+        # the reference horovodrun errors on --mpi --gloo; dropping an
+        # explicit route silently is what this check prevents
+        raise RuntimeError(
+            "contradictory launcher selection: --gloo/--launcher local "
+            "together with --mpi/--launcher mpi/jsrun")
+    if use_local:
+        return local_fn()
+    if use_mpi:
+        impl = _mpi.get_mpi_implementation()
+        if impl in (_mpi.MISSING_IMPL, _mpi.UNKNOWN_IMPL):
+            raise RuntimeError(_mpi.MPI_NOT_FOUND_MSG)
+        return mpi_fn(impl)
+    if use_jsrun:
+        if not LSFUtils.using_lsf():
+            raise RuntimeError(
+                "--launcher jsrun requires an LSF job environment")
+        return js_fn()
+    # auto
+    if LSFUtils.using_lsf() and is_jsrun_installed():
+        return js_fn()
+    if args is not None:
+        hosts = _resolve_hosts(args)
+        spans_remote = any(not is_local_host(h.hostname) for h in hosts)
+        if spans_remote:
+            impl = _mpi.get_mpi_implementation()
+            if impl not in (_mpi.MISSING_IMPL, _mpi.UNKNOWN_IMPL):
+                return mpi_fn(impl)
+    return local_fn()
 
 
 def _run_elastic(args) -> int:
@@ -348,13 +467,14 @@ def run_commandline(argv=None) -> int:
                 "uses the built-in launcher; it cannot be combined with "
                 "--mpi or --launcher mpi/jsrun")
         return _run_elastic(args)
-    if args.use_gloo and (args.use_mpi or args.launcher in ("mpi",
-                                                            "jsrun")):
-        raise RuntimeError(
-            "contradictory launcher selection: --gloo/--launcher local "
-            "together with --mpi/--launcher mpi/jsrun")
-    _check_route(args)
-    return _run_static(args)
+    return run_controller(
+        use_mpi=args.use_mpi or args.launcher == "mpi",
+        mpi_fn=lambda impl=None: _run_mpi(args, impl=impl),
+        use_jsrun=args.launcher == "jsrun",
+        js_fn=lambda: _run_jsrun(args),
+        use_local=args.use_gloo or args.launcher == "local",
+        local_fn=lambda: _run_static(args),
+        args=args)
 
 
 def main():

@@ -1,6 +1,5 @@
 """Worker stub for the programmatic ``run()`` API (a copy of
-``horovod_tpu/runner/run_task.py``, without its mpirun identity branch:
-the mpirun route waits, ROADMAP A2).
+``horovod_tpu/runner/run_task.py``).
 
 Reference: horovod/runner/run_task.py — fetches the pickled
 function from the launcher's KV store, executes it, posts the result back.
@@ -34,7 +33,14 @@ def execute_from_store(rank: int):
 
 
 def main() -> int:
-    rank = int(os.environ["HVD_TPU_RANK"])
+    rank_env = os.environ.get("HVD_TPU_RANK")
+    if rank_env is None:
+        # mpirun-launched workers (run(use_mpi=True)) carry identity in
+        # the MPI env family, not the launcher contract
+        from ..config import mpi_task_identity
+        rank = int(mpi_task_identity().get("RANK", 0))
+    else:
+        rank = int(rank_env)
     try:
         execute_from_store(rank)
         return 0

@@ -218,3 +218,126 @@ def test_sharded_step_has_no_fallback():
     assert len(sharding) == 5
     assert not [n for node in sharding for n in ast.walk(node)
                 if isinstance(n, ast.Try)]
+
+
+def test_estimator_and_sdc_modules_import_with_jax_blocked():
+    """The Estimator slice (data, callbacks, the SDC plane, the autotuner,
+    the serving buckets, the mpirun and jsrun routes) imports with jax and
+    the JAX package blocked and loads none of them."""
+    code = (
+        "import sys\n"
+        f"for m in {sorted(FORBIDDEN)!r}:\n"
+        "    sys.modules[m] = None\n"
+        "import horovod_tpu_torch as hvd\n"
+        "import horovod_tpu_torch.data, horovod_tpu_torch.callbacks\n"
+        "import horovod_tpu_torch.estimator, horovod_tpu_torch._schedule\n"
+        "import horovod_tpu_torch.sdc.guard, horovod_tpu_torch.sdc.policy\n"
+        "import horovod_tpu_torch.sdc.fingerprint\n"
+        "import horovod_tpu_torch.parameter_manager\n"
+        "import horovod_tpu_torch.serving.batcher\n"
+        "import horovod_tpu_torch.runner.mpi_run\n"
+        "import horovod_tpu_torch.runner.lsf\n"
+        "assert hvd.Estimator is horovod_tpu_torch.estimator.Estimator\n"
+        "assert hvd.callbacks.MetricAverageCallback\n"
+        "bad = [m for m, mod in sys.modules.items() if mod is not None\n"
+        "       and m.split('.')[0] in ('horovod_tpu', 'jax', 'flax',\n"
+        "                               'optax')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+def test_estimator_and_prefetch_default_to_cuda_and_raise_without():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    from horovod_tpu_torch import data
+    from horovod_tpu_torch.estimator import Estimator
+    model = torch.nn.Linear(2, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Estimator(model)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        data.prefetch_to_device(iter([]))
+    # asked for the card, there is none: raise, never stage on the host
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        data.PrefetchIterator(iter([]), device="cuda")
+    assert Estimator(model, device="cpu").device == torch.device("cpu")
+
+
+def test_guard_and_fingerprint_stay_on_the_device(monkeypatch):
+    """The step guard and the fingerprint fold never copy a tensor to the
+    host: no .cpu(), .numpy() or .to() of a gradient or parameter; each
+    reads one host value list (one sync) and is otherwise device work, so
+    on CUDA tensors nothing falls back to a host check."""
+    from horovod_tpu_torch import sdc
+    grads = {"a": torch.randn(64, 8), "b": torch.randn(8)}
+    grads["a"][3, 1] = float("nan")
+    calls = {"tolist": 0}
+    tolist = torch.Tensor.tolist
+
+    def counting_tolist(self):
+        calls["tolist"] += 1
+        return tolist(self)
+
+    def refuse(*a, **k):
+        raise AssertionError("a host copy")
+    monkeypatch.setattr(torch.Tensor, "tolist", counting_tolist)
+    for name in ("cpu", "numpy", "item"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    det = sdc.StepGuard(sync=lambda c: c).check(grads, torch.tensor(1.0))
+    assert det == sdc.Detection("nonfinite", True)
+    assert calls["tolist"] == 1
+    sdc.fold_fingerprint(grads)
+    assert calls["tolist"] == 2
+    src = open(os.path.join(PKG, "sdc", "guard.py")).read() + open(
+        os.path.join(PKG, "sdc", "fingerprint.py")).read()
+    assert "np.asarray" not in src and ".numpy()" not in src
+
+
+def test_prefetch_and_guard_paths_catch_nothing():
+    """A failed copy, event wait or reduction raises: the prefetcher's
+    staging, the guard and the fingerprint fold have no try/except of
+    their own (the worker thread re-raises a source's error on the
+    consumer)."""
+    for rel, names in ((("data.py",), ("_stage", "__next__")),
+                       (("sdc", "guard.py"), ("_grads_ok", "check",
+                                              "guard_update")),
+                       (("sdc", "fingerprint.py"), ("_leaf_sums",))):
+        path = os.path.join(PKG, *rel)
+        tree = ast.parse(open(path).read(), path)
+        fns = [n for n in ast.walk(tree)
+               if isinstance(n, ast.FunctionDef) and n.name in names]
+        assert len(fns) == len(names), rel
+        assert not [n for f in fns for n in ast.walk(f)
+                    if isinstance(n, ast.Try)], rel
+
+
+def test_autotune_flag_is_no_longer_a_silent_no_op():
+    """``--autotune`` reaches a ParameterManager that the optimizer
+    feeds, and the threshold it adopts re-plans the buckets."""
+    from horovod_tpu_torch.runner import config_parser, launch
+    args = launch.parse_args(["--autotune", "python", "x.py"])
+    env = config_parser.set_env_from_args({}, args)
+    from horovod_tpu_torch import config
+    overrides = {k[len("HVD_TPU_"):]: config._REGISTRY[
+        k[len("HVD_TPU_"):]].parser(v) for k, v in env.items()
+        if k.startswith("HVD_TPU_AUTOTUNE")}
+    assert overrides["AUTOTUNE"] is True
+    hvd.init(device="cpu", config_overrides=dict(
+        overrides, AUTOTUNE_WARMUP_SAMPLES=0, AUTOTUNE_STEPS_PER_SAMPLE=1))
+    try:
+        pm = hvd.basics.world().parameter_manager
+        assert pm is not None and pm.active
+        model = torch.nn.Linear(4, 2)
+        opt = hvd.DistributedOptimizer(torch.optim.SGD(model.parameters(),
+                                                       lr=0.1))
+        for _ in range(2):
+            model(torch.ones(1, 4)).sum().backward()
+            opt.step()
+        assert pm._samples_done == 2
+        assert [t for t, _ in opt.plans] == [64 << 20, 1 << 22, 1 << 24]
+    finally:
+        hvd.shutdown()

@@ -347,13 +347,22 @@ def test_programmatic_run():
 
 
 def test_routes_that_wait_raise_and_elastic_dispatches(monkeypatch):
+    """The mpirun and jsrun routes are routed as the JAX launcher routes
+    them: on a machine without mpirun (or outside an LSF job) they raise
+    the JAX package's errors, and none falls back to the built-in
+    launcher; contradictory flags raise; elastic flags dispatch."""
+    from horovod_tpu_torch.runner import mpi_run
+    monkeypatch.setattr(mpi_run, "_default_exec",
+                        lambda cmd: ("mpirun: command not found", 127))
+    monkeypatch.delenv("LSB_JOBID", raising=False)
     for argv in (["--mpi", "-np", "2", "python", "x.py"],
-                 ["--launcher", "mpi", "python", "x.py"],
-                 ["--launcher", "jsrun", "python", "x.py"]):
-        with pytest.raises(RuntimeError, match="ROADMAP A2"):
+                 ["--launcher", "mpi", "python", "x.py"]):
+        with pytest.raises(RuntimeError, match="could not find a usable"):
             launch.run_commandline(argv)
+    with pytest.raises(RuntimeError, match="requires an LSF job"):
+        launch.run_commandline(["--launcher", "jsrun", "python", "x.py"])
     from horovod_tpu_torch.runner import run
-    with pytest.raises(RuntimeError, match="ROADMAP A2"):
+    with pytest.raises(RuntimeError, match="could not find a usable"):
         run(_run_fn, args=(1,), np=1, use_mpi=True)
     with pytest.raises(RuntimeError, match="contradictory"):
         launch.run_commandline(["--gloo", "--mpi", "python", "x.py"])
