@@ -114,6 +114,19 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
    (e) The fit again in a world made with HVD_TPU_AUTOTUNE and small
    sample settings: the threshold changes, the buckets are re-planned,
    and the losses and parameters equal (a)'s bit for bit.
+13. reductions: the compiled-plane DistributedOptimizer (axis_name=
+   "cross", inner_axis="local", mesh= the world's ("cross", "local")
+   DeviceMesh, both dims of size 1) training the train phase's model,
+   weights, data and AdamW, NCCL at size 1, 4 steps under each
+   (reduce_strategy, packing) without compression, under packed +
+   Compression.int8, and under op=Adasum; then tune_distributed_step over
+   the four variants (each a fresh model, 4 calls). At size 1 every
+   uncompressed reduction is the identity: those losses, Adasum's and
+   every tuned variant's equal one another and the train phase's (the
+   eager plane) bit for bit; int8's are finite, its first equal, the rest
+   within TOL_INT8_LOSS. Prints each variant's steady ms a step, the int8
+   reduction's ms a step against its memory bound, the adopted variant
+   and the flash launches (12 a step).
 
 Then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a
@@ -1745,6 +1758,149 @@ def estimator_phase(torch, fa, cfg, train_ms):
     return launches, steady_ms
 
 
+# reductions phase: the compiled-plane DistributedOptimizer. At size 1
+# every uncompressed reduction is the identity, so those variants (and
+# Adasum over groups of one) train exactly as the eager plane's train
+# phase. int8 quantizes each 64 MB bucket to 255 levels of its absmax,
+# with the error fed back: step 1's loss (the same weights) is exact, and
+# steps 2-4 are held to TOL_INT8_LOSS of the uncompressed run's (5% of
+# ln(vocab); AdamW moves only the parameters whose gradient quantizes to
+# a nonzero level until their residual reaches one).
+TOL_INT8_LOSS = 0.5
+RED_VARIANTS = [(s, p) for s in ("hierarchical", "flat")
+                for p in ("per_leaf", "packed")]
+
+
+def _compiled_step(torch, cfg, tokens, targets, **kw):
+    """The train phase's model, weights (seed 0) and AdamW behind a
+    compiled-plane DistributedOptimizer over the ("cross", "local") mesh;
+    returns (step function, optimizer). The step returns its loss."""
+    import dataclasses
+    import torch.nn.functional as F
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import Transformer
+    from horovod_tpu_torch.parallel import flash_attention_fn
+    from horovod_tpu_torch.parallel.train import default_optimizer
+    model = Transformer(
+        dataclasses.replace(cfg, attention_fn=flash_attention_fn),
+        device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    opt = hvd.DistributedOptimizer(
+        default_optimizer(model.parameters()),
+        named_parameters=model.named_parameters(), axis_name="cross",
+        inner_axis="local", mesh=hvd.cross_local_mesh(), **kw)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        logits = model(tokens)
+        loss = F.cross_entropy(logits.reshape(-1, cfg.vocab_size),
+                               targets.reshape(-1).long())
+        loss.backward()
+        opt.step()
+        return loss.detach()
+    return step, opt
+
+
+def _run_steps(torch, step):
+    losses, seconds = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step().item())
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    return losses, 1e3 * sum(seconds[1:]) / len(seconds[1:])
+
+
+def int8_reduction_timing(torch, opt, reps: int = 5) -> dict:
+    """The int8 reduction of one step's gradients (every bucket, through
+    the dispatcher) timed with CUDA events, against the least time the
+    card needs for it: read each gradient and its residual once, write
+    the reduced gradient and the new residual once (16 bytes a parameter
+    at fp32; q, the gathered copy and fp64 temporaries are not counted)."""
+    n = sum(p.numel() for _, p in opt._params)
+    ms = cuda_ms(opt.synchronize, reps, warmup=1)
+    nbytes = 16 * n
+    return {"int8_reduce_ms": ms, "int8_reduce_bound_ms":
+            1e3 * nbytes / PEAK_BYTES, "int8_reduce_bytes": nbytes,
+            "int8_reduce_bound_by": "bytes", "params": n}
+
+
+def reductions_phase(torch, fa, cfg, train_losses) -> int:
+    """The compiled-plane DistributedOptimizer on the card (module
+    docstring, phase 13). Returns its flash launches."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.compiled_autotune import tune_distributed_step
+    hvd.init()
+    data = torch.randint(0, cfg.vocab_size, (BATCH, cfg.max_seq_len + 1),
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(1), device="cuda")
+    tokens, targets = data[:, :-1], data[:, 1:]
+    mesh = hvd.cross_local_mesh()
+    result = {"phase": "reductions", "mesh": dict(zip(
+        mesh.mesh_dim_names, mesh.mesh.shape)), "steps": TRAIN_STEPS,
+        "variants": {}}
+    fa.LAUNCHES["flash_fwd"] = 0
+    runs = {f"{s}/{p}": dict(reduce_strategy=s, packing=p)
+            for s, p in RED_VARIANTS}
+    runs["int8"] = dict(packing="packed", compression=hvd.Compression.int8)
+    runs["adasum"] = dict(op=hvd.Adasum)
+    for name, kw in runs.items():
+        before = fa.LAUNCHES["flash_fwd"]
+        step, opt = _compiled_step(torch, cfg, tokens, targets, **kw)
+        losses, ms = _run_steps(torch, step)
+        result["variants"][name] = {
+            "losses": losses, "ms_per_step_steady": ms,
+            "flash_launches": fa.LAUNCHES["flash_fwd"] - before}
+        if name == "int8":
+            result.update(int8_reduction_timing(torch, opt))
+        del step, opt
+        torch.cuda.empty_cache()
+
+    # the tuner: each variant a fresh model, its warmup and timed calls
+    # the same TRAIN_STEPS steps as above
+    tuned_losses = []
+
+    def make_step(reduce_strategy, packing):
+        step = _compiled_step(torch, cfg, tokens, targets,
+                              reduce_strategy=reduce_strategy,
+                              packing=packing)[0]
+        return lambda: tuned_losses.append(step().item())
+    options, _ = tune_distributed_step(make_step, warmup=1,
+                                       iters=TRAIN_STEPS - 1,
+                                       key="chip_smoke")
+    launches = fa.LAUNCHES["flash_fwd"]
+    result["tuned"] = {"options": options, "losses_by_variant": [
+        tuned_losses[i:i + TRAIN_STEPS]
+        for i in range(0, len(tuned_losses), TRAIN_STEPS)]}
+    result["flash_launches"] = launches
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+
+    v = result["variants"]
+    plain = v["hierarchical/per_leaf"]["losses"]
+    checks = {
+        "uncompressed_equal": all(v[f"{s}/{p}"]["losses"] == plain
+                                  for s, p in RED_VARIANTS),
+        "equal_to_train_phase": plain == train_losses,
+        "adasum_equal": v["adasum"]["losses"] == plain,
+        "int8_finite": all(math.isfinite(x) for x in v["int8"]["losses"]),
+        "int8_first_equal": v["int8"]["losses"][0] == plain[0],
+        "int8_within_tol": all(abs(a - b) <= TOL_INT8_LOSS for a, b in
+                               zip(v["int8"]["losses"], plain)),
+        "tuned_equal": result["tuned"]["losses_by_variant"]
+        == [plain] * len(RED_VARIANTS),
+        "launches_per_step": all(
+            r["flash_launches"] == cfg.num_layers * TRAIN_STEPS
+            for r in v.values()) and launches == cfg.num_layers
+        * TRAIN_STEPS * (len(runs) + len(RED_VARIANTS)),
+    }
+    result.update(checks=checks, tol_int8_loss=TOL_INT8_LOSS,
+                  ok=all(checks.values()))
+    emit(result)
+    if not result["ok"]:
+        raise AssertionError(f"reductions phase failed: {checks}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1799,6 +1955,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     elastic_launches = elastic_phase(torch, fa, cfg, losses)
     estimator_launches, _ = estimator_phase(torch, fa, cfg, train_ms)
+    reduction_launches = reductions_phase(torch, fa, cfg, losses)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1807,7 +1964,9 @@ def main() -> int:
                                             "ring": ring_launches,
                                             "tensor_parallel": tp_launches,
                                             **elastic_launches,
-                                            **estimator_launches},
+                                            **estimator_launches,
+                                            "reductions":
+                                                reduction_launches},
                        "tensor_parallel_bh24": {
                            key: tp_row[key] for key in (
                                "ms", "plain_ms", "bound_ms", "bound_by",

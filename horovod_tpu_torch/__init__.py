@@ -42,6 +42,7 @@ from .exceptions import (  # noqa: F401
     HorovodInternalError, HostsUpdatedInterrupt, TensorValidationError,
     DuplicateNameError, NotInitializedError, StallError,
 )
+from .mesh import cross_local_mesh  # noqa: F401
 from .functions import (  # noqa: F401
     broadcast_parameters, broadcast_optimizer_state,
     broadcast_object, allgather_object,
@@ -56,14 +57,16 @@ from .sync_batch_norm import SyncBatchNorm, sync_batch_norm_stats  # noqa: F401
 
 def __getattr__(name):
     # the Estimator and these subpackages load on first use
-    # (``hvd.Estimator``, ``hvd.elastic.run``, ``hvd.callbacks``), as in
+    # (``hvd.Estimator``, ``hvd.elastic.run``, ``hvd.callbacks``,
+    # ``hvd.compiled_autotune``), as in
     # the JAX package: importlib, not ``from . import x``, whose fromlist
     # lookup would re-enter this __getattr__
     if name == "Estimator":
         from .estimator import Estimator
         return Estimator
     if name in ("elastic", "runner", "callbacks", "data", "sdc",
-                "checkpoint", "checkpointing", "serving"):
+                "checkpoint", "checkpointing", "serving",
+                "compiled_autotune"):
         import importlib
         return importlib.import_module("." + name, __name__)
     raise AttributeError(

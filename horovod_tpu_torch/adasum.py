@@ -9,13 +9,15 @@ log2(n)-level tree over the contributions (the reference's
 vector-halving distance-doubling schedule), so the number of processes
 must be a power of two. The eager allreduce(op=Adasum) gathers each
 tensor from every process into an (n, ...) stack and runs the tree on
-every process. The JAX package's in-jit ``adasum_grads`` waits for the
-mesh slice (ROADMAP A1).
+every process. :func:`adasum_grads` is the compiled plane's form (the
+JAX package's in-jit ``adasum_grads``): a plain mean over an inner group
+first, then the tree over the gathered rows of an outer group.
 """
 
 from typing import List, Optional
 
 import torch
+import torch.distributed as dist
 
 _HALF = (torch.float16, torch.bfloat16)
 
@@ -95,3 +97,29 @@ def adasum_eager(world, values: List[torch.Tensor], wm,
                 r = (r * postscale_factor).to(dt)
             out[i] = r.to(v.device)
     return out
+
+
+def adasum_grads(grads, outer_group, inner_group=None):
+    """Adasum of each gradient over ``outer_group``, after a plain mean
+    over ``inner_group`` (the processes that share a model replica; the
+    reference's intra-node stage, AdasumGpuAllreduceOp): per tensor, a sum
+    over the inner group divided by its size, an all-gather over the outer
+    group into an (n, ...) stack, and :func:`adasum_tree` on it, so the
+    result is identical on every member. ``grads``: a tensor, or a list,
+    tuple or dict of tensors (the same structure comes back). The groups
+    are ``torch.distributed`` process groups (``DeviceMesh.get_group``);
+    every wire call runs through ``collectives.run_in_order``."""
+    from .compression import true_divide
+    from .mesh import group_allgather, group_allreduce
+
+    def combine(g):
+        if inner_group is not None:
+            g, = group_allreduce([g], inner_group)
+            g = true_divide(g, dist.get_world_size(inner_group))
+        return adasum_tree(group_allgather(g, outer_group))
+
+    if isinstance(grads, torch.Tensor):
+        return combine(grads)
+    if isinstance(grads, dict):
+        return {k: combine(v) for k, v in grads.items()}
+    return type(grads)(combine(g) for g in grads)

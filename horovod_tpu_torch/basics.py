@@ -82,6 +82,9 @@ class World:
     #: the fusion-threshold autotuner (parameter_manager.py), made at init
     #: when HVD_TPU_AUTOTUNE is set
     parameter_manager: Any = None
+    #: the compiled-plane reduction's groups (mesh.py): the ("cross",
+    #: "local") DeviceMesh and the flattened groups, made once per world
+    groups: Dict[Any, Any] = dataclasses.field(default_factory=dict)
     lock: threading.Lock = dataclasses.field(default_factory=threading.Lock)
 
 

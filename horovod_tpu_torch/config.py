@@ -44,6 +44,13 @@ PACK_CUTOFF = _register(
          "buffer, so nothing here reads it; the autotuner "
          "(parameter_manager.py) still tunes it as its second phase, so "
          "its schedule is the JAX package's.")
+INJIT_PACKED_THRESHOLD = _register(
+    "INJIT_PACKED_THRESHOLD", 64 * 1024 * 1024, int,
+    help="Bucket cap in bytes for the packed buffers of the compiled-plane "
+         "reduction (DistributedOptimizer(axis_name=..., "
+         "packing='packed')): gradients are concatenated per dtype into "
+         "flat buffers of at most this many bytes, one wire call per "
+         "buffer. 0 packs each dtype into a single unbounded buffer.")
 RANK = _register("RANK", -1, int, alias="HOROVOD_RANK")
 SIZE = _register("SIZE", -1, int, alias="HOROVOD_SIZE")
 LOCAL_RANK = _register("LOCAL_RANK", -1, int, alias="HOROVOD_LOCAL_RANK")

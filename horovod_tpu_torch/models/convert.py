@@ -10,6 +10,12 @@ fsdp (``mesh=``) each process takes its blocks of the global arrays, as
 The CNN zoo (ResNet, VGG, Inception, MLP) converts the same way by name,
 with the batch statistics as buffers and kernels moved to torch's layout:
 :func:`cnn_params_from_flax` and :func:`cnn_params_to_flax`.
+
+The int8 compressor's error-feedback residual (the JAX package's
+``Int8ErrorFeedbackState.residual``, one fp32 array per parameter)
+converts by name too: :func:`int8_residual_from_flax` and
+:func:`int8_residual_to_flax`, so that both packages can continue from
+one state.
 """
 
 from typing import Any, Dict, Iterable, List, Mapping
@@ -228,3 +234,33 @@ def cnn_params_to_flax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
             else "params"
         out[kind][name] = a
     return {k: nest(v) for k, v in out.items() if v}
+
+
+def int8_residual_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """The compiled-plane optimizer's error-feedback residual, the value
+    of its ``state_dict()["error_feedback_residual"]`` ({state_dict name:
+    fp32 CPU tensor}), from the JAX package's
+    ``Int8ErrorFeedbackState.residual`` given as nested dicts of numpy
+    arrays keyed by flax path (a top-level ``{"params": ...}`` is
+    accepted). ``kernel`` leaves of the CNN zoo move to torch's layout.
+    Load it with ``opt.load_state_dict(dict(opt.state_dict(),
+    error_feedback_residual=...))``."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    out = {}
+    for name, a in _flatten(tree).items():
+        a = np.array(a, dtype=np.float32)   # a copy
+        if name.rsplit(".", 1)[-1] == "kernel" and a.ndim in (2, 4):
+            a = np.ascontiguousarray(_torch_layout(a))
+        out[name] = torch.from_numpy(a)
+    return out
+
+
+def int8_residual_to_flax(residual: Mapping[str, torch.Tensor]
+                          ) -> Dict[str, Any]:
+    """The inverse of :func:`int8_residual_from_flax`: the JAX package's
+    residual tree (nested dicts of fp32 numpy arrays, in flax's layout)
+    from the port's ``{name: tensor}``."""
+    return nest({name: np.array(flax_view(name, t.detach()).float().cpu()
+                                 .numpy())
+                 for name, t in residual.items()})

@@ -341,3 +341,54 @@ def test_autotune_flag_is_no_longer_a_silent_no_op():
         assert [t for t, _ in opt.plans] == [64 << 20, 1 << 22, 1 << 24]
     finally:
         hvd.shutdown()
+
+
+def test_compiled_plane_modules_import_with_jax_blocked():
+    """The compiled-plane reductions (int8, the packed planner, Adasum over
+    groups, the ("cross", "local") mesh) and the compiled autotuner import
+    with jax and the JAX package blocked and load none of them."""
+    code = (
+        "import sys\n"
+        f"for m in {sorted(FORBIDDEN)!r}:\n"
+        "    sys.modules[m] = None\n"
+        "import horovod_tpu_torch as hvd\n"
+        "import horovod_tpu_torch.compiled_autotune\n"
+        "from horovod_tpu_torch.compression import int8_pack_reduce\n"
+        "from horovod_tpu_torch.fusion import packed_plan, packed_apply\n"
+        "from horovod_tpu_torch.adasum import adasum_grads\n"
+        "from horovod_tpu_torch.mesh import cross_local_mesh, flat_group\n"
+        "from horovod_tpu_torch.models.convert import "
+        "int8_residual_from_flax\n"
+        "assert hvd.compiled_autotune.tune_distributed_step\n"
+        "assert hvd.Compression.int8.stateful\n"
+        "bad = [m for m, mod in sys.modules.items() if mod is not None\n"
+        "       and m.split('.')[0] in ('horovod_tpu', 'jax', 'flax',\n"
+        "                               'optax')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+def test_compiled_plane_reduction_catches_nothing():
+    """A failed wire call or reduction on the compiled plane raises: the
+    optimizer's reduction, int8, Adasum over groups and the mesh's wire
+    calls have no try/except of their own."""
+    for rel, names in (
+            (("optimizer.py",), ("synchronize", "_reduce", "_reduce_bucket",
+                                 "_mean")),
+            (("compression.py",), ("int8_pack_reduce", "true_divide")),
+            (("adasum.py",), ("adasum_grads",)),
+            (("mesh.py",), ("cross_local_mesh", "flat_group",
+                            "group_allreduce", "group_allgather")),
+            (("fusion.py",), ("packed_apply", "flatten_bucket"))):
+        path = os.path.join(PKG, *rel)
+        tree = ast.parse(open(path).read(), path)
+        fns = [n for n in ast.walk(tree)
+               if isinstance(n, ast.FunctionDef) and n.name in names]
+        assert {f.name for f in fns} == set(names), rel
+        assert not [n for f in fns for n in ast.walk(f)
+                    if isinstance(n, ast.Try)], rel
