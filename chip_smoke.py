@@ -127,6 +127,42 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
    within TOL_INT8_LOSS. Prints each variant's steady ms a step, the int8
    reduction's ms a step against its memory bound, the adopted variant
    and the flash launches (12 a step).
+14. serving (runs in the main world, between cnn and collectives): the
+   train phase's parameters committed through the port's CheckpointManager
+   under build/ as step 1 and served by serving.InferenceEngine (max batch
+   8, buckets 1, 2, 4, 8, warmed from an example row, hot-reload poll
+   0.2 s) behind serving.InferenceServer on 127.0.0.1, the default
+   TransformerConfig at full width through the flash kernel under
+   torch.inference_mode() on the batcher's thread. Each answer is the last
+   position's greedy token and its log-probability for a row of 2048
+   tokens. HVD_TPU_TRACE_SAMPLE=1 with the span files under build/. Wave 1:
+   8 concurrent clients x 8 one-row requests (rows from numpy seed 0);
+   wave 2: traffic keeps running while one more training step runs and
+   step 2 commits, until the poller has swapped it in and 32 answers
+   came from it. Every answer (all 200) is held to the live row of a
+   direct forward at its padded bucket with its labelled step's
+   parameters: token equal, log-probability within TOL_SERVE_LOGPROB; a
+   planted fault (each answer held to its neighbour's row, the results
+   sliced back to the wrong requests) must fail that comparison. At least
+   one batch coalesces more than one request; 12 flash launches per
+   micro-batch forward; every request's spans nest server.infer ->
+   batch.queue, batch.forward. Prints requests/s, p50/p99 latency, the
+   batch-size histograms, forward ms per bucket, the reload's restore,
+   copy and swap seconds, and the kernel at the serving shapes (BH 12,
+   24, 48, 96; S 2048, D 64, bf16, causal) against its plain version,
+   SDPA and its bound.
+15. telemetry (last): init() again with HVD_TPU_TIMELINE, a metrics
+   endpoint (HVD_TPU_METRICS_PORT) and HVD_TPU_SCHEDULE_CHECK=1; 3
+   full-width train steps on the train phase's seeds, step 3 under
+   the timeline's torch.profiler capture. The losses equal the train
+   phase's first 3 bit for bit; the timeline parses and holds
+   GROUPED_ALLREDUCE and NCCL_ALLREDUCE on every gradient bucket's lane
+   for every step; its spliced device lanes hold the flash kernel 12
+   times, on the host clock; no record dropped; a scrape of /metrics
+   counts the optimizer's grouped allreduce once per bucket per step,
+   with bytes equal to the gradients'; the schedule ledger is not empty.
+   Prints the steady step ms beside the train phase's, the events
+   written and spliced, and the scrape's ms.
 
 Then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a
@@ -583,10 +619,12 @@ def ring_phase(torch, fa):
     return launches
 
 
-def flash_timing(torch, fa, bh, s, d, causal=True, plain_iters=3):
+def flash_timing(torch, fa, bh, s, d, causal=True, plain_iters=3,
+                 batch=BATCH):
     """The kernel at (bh, s, s, d) bf16 against its plain version (the
     bf16 limits of the kernel cases), then its ms, the plain version's,
-    SDPA's and the bound (bytes and operations, as kernel_timing)."""
+    SDPA's (on ``batch`` x bh / batch heads) and the bound (bytes and
+    operations, as kernel_timing)."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(11)
     q, k, v = (torch.randn(bh, s, d, generator=gen, device="cuda")
@@ -598,7 +636,7 @@ def flash_timing(torch, fa, bh, s, d, causal=True, plain_iters=3):
     ms = cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, 0, 0, causal), 20)
     plain_ms = cuda_ms(lambda: fa.flash_fwd_plain(
         q, k, v, 0, 0, causal, block_k=fa.KEY_TILE), plain_iters)
-    q4, k4, v4 = (t.view(BATCH, bh // BATCH, s, d) for t in (q, k, v))
+    q4, k4, v4 = (t.view(batch, bh // batch, s, d) for t in (q, k, v))
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q4, k4, v4, is_causal=causal), 20)
     _, flops, bound = flash_bound(q, causal)
@@ -1901,6 +1939,420 @@ def reductions_phase(torch, fa, cfg, train_losses) -> int:
     return launches
 
 
+SERVE_BUCKETS = (1, 2, 4, 8)
+SERVE_CLIENTS = 8
+SERVE_REQUESTS = 8       # per client in the first wave, one row each
+SERVE_POOL = 2048        # distinct rows of the reload wave (seed 0)
+SERVE_AFTER_SWAP = 32    # answers at step 2 before the reload wave ends
+# an answer against the live row of a direct forward at the same padded
+# bucket: the same kernels on the same inputs and shapes, so the expected
+# difference is 0; the token must be equal and the fp32 log-probability
+# within TOL_SERVE_LOGPROB
+TOL_SERVE_LOGPROB = 1e-4
+
+
+def served_apply(torch, model):
+    """The serving forward: a padded batch of token rows -> per row the
+    last position's greedy token and its log-probability (two floats a
+    row, not 32,000 logits)."""
+    def apply(params, x):
+        logits = torch.func.functional_call(model, params, (x.long(),))
+        last = torch.log_softmax(logits[:, -1], dim=-1)
+        lp, tok = last.max(dim=-1)
+        return torch.stack([tok.float(), lp], dim=-1)
+    return apply
+
+
+def serving_phase(torch, fa, cfg, bundle, tokens, targets):
+    """The inference plane at full width (module docstring, phase 14).
+    Returns the flash launches of its first wave and the kernel's rows at
+    the serving shapes."""
+    import dataclasses
+    import shutil
+    import threading
+    import urllib.request
+    import numpy as np
+    from horovod_tpu_torch import checkpointing as cp
+    from horovod_tpu_torch import serving
+    from horovod_tpu_torch import tracing
+    from horovod_tpu_torch.models import Transformer
+    from horovod_tpu_torch.parallel import flash_attention_fn
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_serving")
+    shutil.rmtree(root, ignore_errors=True)
+    span_dir = os.path.join(root, "spans")
+    mgr = cp.CheckpointManager(os.path.join(root, "ckpt"))
+
+    def commit(step):
+        state = {n: p.detach().clone()
+                 for n, p in bundle.model.named_parameters()}
+        mgr.save(step, state, async_=False)
+        return state
+    steps = {1: commit(1)}
+
+    model = Transformer(dataclasses.replace(
+        cfg, attention_fn=flash_attention_fn), device="meta")
+    apply = served_apply(torch, model)
+    batches = []          # the padded batches, on the card, as served
+
+    def recorded(params, x):
+        out = apply(params, x)
+        batches.append(x)
+        return out
+    env = {"HVD_TPU_TRACE_SAMPLE": "1", "HVD_TPU_TRACE_DIR": span_dir}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    tracing.reset()
+    t0 = time.perf_counter()
+    engine = serving.InferenceEngine(
+        recorded, checkpoint_dir=mgr.directory, max_batch=max(SERVE_BUCKETS),
+        buckets=SERVE_BUCKETS, batch_timeout_ms=5.0, queue_depth=64,
+        deadline_ms=0, reload_poll_seconds=0.2, warmup=True,
+        example=np.zeros(cfg.max_seq_len, np.float32))
+    start_s = time.perf_counter() - t0
+    warm_batches = len(batches)
+    server = serving.InferenceServer(engine, port=0, addr="127.0.0.1")
+    url = f"http://127.0.0.1:{server.start()}/v1/infer"
+    rng = np.random.RandomState(0)
+    rows = rng.randint(0, cfg.vocab_size, (
+        SERVE_CLIENTS * SERVE_REQUESTS + SERVE_POOL, cfg.max_seq_len))
+    bodies = [json.dumps({"inputs": [r.tolist()]}).encode() for r in rows]
+    answers = []          # (row index, request id, code, doc, seconds)
+    lock = threading.Lock()
+
+    def ask(i):
+        rid = f"{i:016x}"
+        t = time.perf_counter()
+        req = urllib.request.Request(url, data=bodies[i], method="POST",
+                                     headers={"X-HVD-TPU-Request-Id": rid})
+        try:
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                code, doc = resp.status, json.loads(resp.read())
+        except Exception as e:  # noqa: BLE001 — recorded, fails the phase
+            code, doc = -1, {"error": repr(e)}
+        with lock:
+            answers.append((i, rid, code, doc, time.perf_counter() - t))
+
+    # wave 1: 8 clients x 8 one-row requests
+    def wave1(c):
+        for j in range(SERVE_REQUESTS):
+            ask(c * SERVE_REQUESTS + j)
+    fa.LAUNCHES["flash_fwd"] = 0
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=wave1, args=(c,))
+               for c in range(SERVE_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wave1_s = time.perf_counter() - t0
+    launches = fa.LAUNCHES["flash_fwd"]
+    wave1_forwards = len(batches) - warm_batches
+    wave1_answers = list(answers)
+
+    # wave 2: traffic runs while one more step trains and step 2 commits;
+    # the poller swaps it in
+    nxt = [SERVE_CLIENTS * SERVE_REQUESTS]
+    stop = threading.Event()
+
+    def wave2():
+        while not stop.is_set():
+            with lock:
+                i = nxt[0]
+                nxt[0] += 1
+            if i >= len(rows):
+                return
+            ask(i)
+    fa.LAUNCHES["flash_fwd"] = 0
+    wave2_start = len(batches)
+    threads = [threading.Thread(target=wave2) for _ in range(SERVE_CLIENTS)]
+    for t in threads:
+        t.start()
+    time.sleep(0.5)
+    train_loss = bundle.step(tokens, targets).item()
+    steps[2] = commit(2)
+    deadline = time.monotonic() + 120
+    while time.monotonic() < deadline:
+        with lock:
+            at_two = sum(1 for a in answers[len(wave1_answers):]
+                         if a[3].get("step") == 2)
+        if at_two >= SERVE_AFTER_SWAP or nxt[0] >= len(rows):
+            break
+        time.sleep(0.05)
+    stop.set()
+    for t in threads:
+        t.join()
+    wave2_launches = fa.LAUNCHES["flash_fwd"]
+    wave2_forwards = len(batches) - wave2_start
+    reload_s = engine._lifecycle.last_reload_seconds
+    server.close()
+    tracing.reset()
+    for k, v in saved_env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    tracing.reset()
+
+    # every answer against the live row of a direct forward at its bucket
+    where = {}
+    for b, x in enumerate(batches[warm_batches:], start=warm_batches):
+        xc = x.cpu().numpy()
+        live = int((np.abs(xc).sum(axis=1) > 0).sum())
+        for j in range(live):
+            where.setdefault(xc[j].tobytes(), []).append((b, j))
+    direct = {}
+
+    def direct_row(b, j, step):
+        if (b, step) not in direct:
+            with torch.inference_mode():
+                direct[(b, step)] = apply(steps[step], batches[b]).cpu()
+        return direct[(b, step)][j]
+
+    def compare(shift: int):
+        """(tokens equal, max |logprob - direct|) over every answer;
+        ``shift`` > 0 plants a fault: each answer is held to the direct
+        forward of the row ``shift`` places on (the results sliced back
+        to the wrong requests)."""
+        ok_tokens, err = True, 0.0
+        ordered = sorted(answers)
+        for n, (i, _, code, doc, _) in enumerate(ordered):
+            k = ordered[(n + shift) % len(ordered)][0]
+            key = rows[k].astype(np.float32).tobytes()
+            hits = where.get(key, [])
+            if code != 200 or len(hits) != 1:
+                return False, math.inf
+            b, j = hits[0]
+            want = direct_row(b, j, doc["step"])
+            got = doc["outputs"][0]
+            ok_tokens = ok_tokens and got[0] == float(want[0])
+            err = max(err, abs(got[1] - float(want[1])))
+        return ok_tokens, err
+    tokens_equal, max_err = compare(0)
+    planted_tokens, planted_err = compare(1)
+    planted_rejected = not planted_tokens or planted_err > TOL_SERVE_LOGPROB
+
+    # spans: server.infer -> batch.queue, batch.forward for every request
+    spans = []
+    for name in os.listdir(span_dir):
+        with open(os.path.join(span_dir, name)) as f:
+            spans += [json.loads(line) for line in f if line.strip()]
+    by_trace = {}
+    for sp in spans:
+        by_trace.setdefault(sp["trace"], []).append(sp)
+    spans_ok = True
+    for _, rid, _, _, _ in answers:
+        mine = {sp["name"]: sp for sp in by_trace.get(rid, [])}
+        root_span = mine.get("server.infer")
+        spans_ok = spans_ok and root_span is not None \
+            and root_span["parent"] is None and all(
+                mine.get(n, {}).get("parent") == root_span["span"]
+                for n in ("batch.queue", "batch.forward"))
+
+    # the forward per bucket, and the kernel at each bucket's BH
+    params = steps[2]
+    forward_ms, kernel_rows = {}, {}
+    with torch.inference_mode():
+        for b in SERVE_BUCKETS:
+            x = torch.zeros(b, cfg.max_seq_len, device="cuda")
+            forward_ms[b] = cuda_ms(lambda: apply(params, x), 5)
+    for b in SERVE_BUCKETS:
+        bh = b * cfg.num_heads
+        kernel_rows[bh] = flash_timing(torch, fa, bh, cfg.max_seq_len,
+                                       cfg.head_dim, batch=b)
+    engine.close()
+    shutil.rmtree(root, ignore_errors=True)
+
+    sizes = [int((np.abs(x.cpu().numpy()).sum(axis=1) > 0).sum())
+             for x in batches[warm_batches:]]
+    lat = sorted(a[4] for a in wave1_answers)
+    codes = sorted({a[2] for a in answers})
+    steps_seen = sorted({a[3].get("step") for a in answers})
+    checks = {
+        "all_200": codes == [200],
+        "tokens_equal_direct": tokens_equal,
+        "logprob_within_tol": max_err <= TOL_SERVE_LOGPROB,
+        "planted_fault_rejected": planted_rejected,
+        "coalesced": max(sizes[:wave1_forwards]) > 1,
+        "launches_per_forward": launches == cfg.num_layers * wave1_forwards,
+        "reload_wave_launches": wave2_launches
+        == cfg.num_layers * (wave2_forwards + 1),
+        "hot_swapped": steps_seen == [1, 2] and engine.step == 2,
+        "spans_nested": spans_ok and len(by_trace) >= len(answers),
+        "kernel_agrees_at_serving_bh": all(
+            r["agrees"] for r in kernel_rows.values()),
+        "finite": all(math.isfinite(a[3]["outputs"][0][1])
+                      for a in answers if a[2] == 200),
+    }
+    result = {
+        "phase": "serving", "config": "TransformerConfig() default",
+        "buckets": list(SERVE_BUCKETS), "clients": SERVE_CLIENTS,
+        "engine_start_s": start_s, "warmup_forwards": warm_batches,
+        "wave1": {"requests": len(wave1_answers), "seconds": wave1_s,
+                  "requests_per_s": len(wave1_answers) / wave1_s,
+                  "p50_ms": 1e3 * lat[len(lat) // 2],
+                  "p99_ms": 1e3 * lat[min(len(lat) - 1,
+                                          int(0.99 * len(lat)))],
+                  "forwards": wave1_forwards, "flash_launches": launches},
+        "wave2": {"requests": len(answers) - len(wave1_answers),
+                  "forwards": wave2_forwards,
+                  "flash_launches": wave2_launches,
+                  "train_loss": train_loss, "steps_seen": steps_seen},
+        "batch_rows_histogram": {str(n): sizes.count(n)
+                                 for n in sorted(set(sizes))},
+        "bucket_histogram": {str(b): sum(
+            1 for n in sizes if serving.bucket_for(n, SERVE_BUCKETS) == b)
+            for b in SERVE_BUCKETS},
+        "forward_ms_by_bucket": {str(b): ms for b, ms in forward_ms.items()},
+        "reload_seconds": reload_s,
+        "max_abs_err_logprob": max_err, "tol_logprob": TOL_SERVE_LOGPROB,
+        "planted_fault": {"tokens_equal": planted_tokens,
+                          "max_abs_err_logprob": planted_err},
+        "spans": len(spans),
+        "flash_by_bh": {str(bh): r for bh, r in kernel_rows.items()},
+        "checks": checks, "ok": all(checks.values())}
+    emit(result)
+    del steps, direct, batches
+    torch.cuda.empty_cache()
+    if not result["ok"]:
+        raise AssertionError(f"serving phase failed: {checks}")
+    return {"serving": launches, "serving_reload_wave": wave2_launches}, \
+        kernel_rows
+
+
+def telemetry_phase(torch, fa, cfg, train_losses, train_ms):
+    """Timeline, metrics endpoint and schedule ledger on the training path
+    (module docstring, phase 15). Returns its flash launches."""
+    import shutil
+    import urllib.request
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import _schedule
+    from horovod_tpu_torch import metrics as tmetrics
+    from horovod_tpu_torch import timeline as ttl
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_telemetry")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    tl_path = os.path.join(root, "timeline.json")
+    with contextlib.closing(__import__("socket").socket()) as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {"HVD_TPU_TIMELINE": tl_path, "HVD_TPU_METRICS_PORT": str(port),
+           "HVD_TPU_METRICS_ADDR": "127.0.0.1", "HVD_TPU_SCHEDULE_CHECK": "1"}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        if hvd.is_initialized():
+            hvd.shutdown()
+        hvd.init()
+        bundle, tokens, targets = _train_bundle(torch, cfg)
+        opt = bundle.optimizer
+        n_buckets = len(opt._bucket_members)
+        grad_bytes = sum(p.numel() * p.element_size()
+                         for p in bundle.model.parameters())
+        ops_key = 'hvd_tpu_collective_ops_total{op="grouped_allreduce"}'
+        bytes_key = 'hvd_tpu_collective_bytes_total{op="grouped_allreduce"}'
+        before = tmetrics.snapshot()
+        tl = hvd.basics.world().timeline
+        losses, seconds = [], []
+        fa.LAUNCHES["flash_fwd"] = 0
+        for step in range(3):
+            if step == 2:
+                traced_from = fa.LAUNCHES["flash_fwd"]
+                tl.start_torch_trace(os.path.join(root, "device"))
+            t0 = time.perf_counter()
+            losses.append(bundle.step(tokens, targets).item())
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            if step == 2:
+                tl.stop_torch_trace()
+        launches = fa.LAUNCHES["flash_fwd"]
+        traced_launches = launches - traced_from
+        t0 = time.perf_counter()
+        text = urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                      timeout=30).read().decode()
+        scrape_ms = 1e3 * (time.perf_counter() - t0)
+        series = {}
+        for line in text.splitlines():
+            if line.startswith("hvd_tpu_") and " " in line:
+                name, value = line.rsplit(" ", 1)
+                series[name] = float(value)
+        ledger_n = _schedule.ledger().snapshot()["n"]
+        opt.remove_hooks()
+        hvd.shutdown()              # closes the timeline: the splice
+        dropped = tmetrics.snapshot()["hvd_tpu_timeline_dropped_total"] \
+            - before["hvd_tpu_timeline_dropped_total"]
+        written = tmetrics.snapshot()["hvd_tpu_timeline_events_total"] \
+            - before["hvd_tpu_timeline_events_total"]
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    del bundle, opt
+    torch.cuda.empty_cache()
+
+    with open(tl_path) as f:
+        events = [e for e in json.load(f) if e]
+    host = [e for e in events if e.get("pid", 0) < ttl.DEVICE_PID_OFFSET]
+    device = [e for e in events if e.get("pid", 0) >= ttl.DEVICE_PID_OFFSET]
+    lanes = {e["tid"]: e["args"]["name"] for e in host
+             if e.get("ph") == "M" and e.get("name") == "thread_name"}
+    per_bucket = {}
+    for e in host:
+        lane = lanes.get(e.get("tid"), "")
+        if e.get("ph") == "B" and lane.startswith("grad.bucket."):
+            per_bucket.setdefault(lane, []).append(e["name"])
+    flash = [e for e in device if e.get("ph") == "X"
+             and e.get("cat") == "kernel" and "flash" in e.get("name", "")]
+    step3 = [e["ts"] for e in host if e.get("ph") == "B"
+             and lanes.get(e.get("tid"), "").startswith("grad.bucket.")]
+    marker = [e for e in device if e.get("name") == ttl.SYNC_MARKER]
+    # the spliced kernels lie on the host clock: after the marker, and
+    # the last step's flash launches before its last bucket reduction
+    aligned = bool(marker) and bool(flash) and min(
+        e["ts"] for e in flash) >= marker[0]["ts"] \
+        and max(e["ts"] for e in flash) <= max(step3)
+    steady_ms = 1e3 * seconds[1]
+    ops = series.get(ops_key, 0.0) - before.get(ops_key, 0.0)
+    nbytes = series.get(bytes_key, 0.0) - before.get(bytes_key, 0.0)
+    checks = {
+        "losses_bit_equal_train_phase": losses == train_losses[:3],
+        "timeline_parses": bool(host),
+        "every_bucket_every_step": len(per_bucket) == n_buckets and all(
+            names.count("GROUPED_ALLREDUCE") == 3
+            and names.count("NCCL_ALLREDUCE") == 3
+            for names in per_bucket.values()),
+        "flash_in_device_lanes": len(flash) == cfg.num_layers
+        and traced_launches == cfg.num_layers,
+        "device_lanes_on_host_clock": aligned,
+        "dropped_zero": dropped == 0,
+        "ops_once_per_bucket_per_step": ops == 3 * n_buckets,
+        "bytes_equal_gradient_bytes": nbytes == 3 * grad_bytes,
+        "ledger_non_empty": ledger_n > 0,
+    }
+    result = {
+        "phase": "telemetry", "steps": 3, "losses": losses,
+        "step_seconds": seconds, "ms_per_step_steady": steady_ms,
+        "train_phase_ms_per_step_steady": train_ms,
+        "note": "steady = step 2; step 3 runs under torch.profiler",
+        "buckets": n_buckets, "gradient_bytes": grad_bytes,
+        "events_written": written, "events_spliced": len(device),
+        "flash_kernel_events": len(flash),
+        "flash_kernel_names": sorted({e["name"] for e in flash}),
+        "timeline_bytes": os.path.getsize(tl_path),
+        "scrape_ms": scrape_ms, "scrape_bytes": len(text),
+        "scraped_ops": ops, "scraped_bytes": nbytes, "ledger_n": ledger_n,
+        "flash_launches": launches, "checks": checks,
+        "ok": all(checks.values())}
+    emit(result)
+    shutil.rmtree(root, ignore_errors=True)
+    if not result["ok"]:
+        raise AssertionError(f"telemetry phase failed: {checks}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1947,6 +2399,8 @@ def main() -> int:
     train_default_reference(torch, cfg, tokens, targets, losses)
     checkpoint_phase(torch, bundle, tokens, targets)
     cnn_phase(torch)
+    serving_launches, serving_rows = serving_phase(torch, fa, cfg, bundle,
+                                                   tokens, targets)
     bundle.optimizer.remove_hooks()
     # last: its join() leaves this process contributing zeros
     collectives_phase(torch, hvd, collectives, bundle)
@@ -1956,6 +2410,7 @@ def main() -> int:
     elastic_launches = elastic_phase(torch, fa, cfg, losses)
     estimator_launches, _ = estimator_phase(torch, fa, cfg, train_ms)
     reduction_launches = reductions_phase(torch, fa, cfg, losses)
+    telemetry_launches = telemetry_phase(torch, fa, cfg, losses, train_ms)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1966,11 +2421,19 @@ def main() -> int:
                                             **elastic_launches,
                                             **estimator_launches,
                                             "reductions":
-                                                reduction_launches},
+                                                reduction_launches,
+                                            **serving_launches,
+                                            "telemetry":
+                                                telemetry_launches},
                        "tensor_parallel_bh24": {
                            key: tp_row[key] for key in (
                                "ms", "plain_ms", "bound_ms", "bound_by",
-                               "library_ms", "max_abs_err")}}]})
+                               "library_ms", "max_abs_err")},
+                       "serving_by_bh": {
+                           str(bh): {key: r[key] for key in (
+                               "ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms", "max_abs_err")}
+                           for bh, r in serving_rows.items()}}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

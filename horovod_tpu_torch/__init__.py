@@ -56,17 +56,22 @@ from .sync_batch_norm import SyncBatchNorm, sync_batch_norm_stats  # noqa: F401
 
 
 def __getattr__(name):
-    # the Estimator and these subpackages load on first use
-    # (``hvd.Estimator``, ``hvd.elastic.run``, ``hvd.callbacks``,
-    # ``hvd.compiled_autotune``), as in
-    # the JAX package: importlib, not ``from . import x``, whose fromlist
-    # lookup would re-enter this __getattr__
+    # the metrics read paths, the Estimator and these subpackages load on
+    # first use (``hvd.metrics_snapshot()``, ``hvd.Estimator``,
+    # ``hvd.elastic.run``, ``hvd.callbacks``, ``hvd.compiled_autotune``),
+    # as in the JAX package: importlib, not ``from . import x``, whose
+    # fromlist lookup would re-enter this __getattr__
+    if name in ("metrics_snapshot", "metrics_allgather_summary"):
+        from . import metrics
+        return {"metrics_snapshot": metrics.snapshot,
+                "metrics_allgather_summary":
+                    metrics.metrics_allgather_summary}[name]
     if name == "Estimator":
         from .estimator import Estimator
         return Estimator
     if name in ("elastic", "runner", "callbacks", "data", "sdc",
                 "checkpoint", "checkpointing", "serving",
-                "compiled_autotune"):
+                "compiled_autotune", "metrics", "faults", "retry"):
         import importlib
         return importlib.import_module("." + name, __name__)
     raise AttributeError(

@@ -8,8 +8,9 @@ contract as the JAX package — ``HVD_TPU_COORDINATOR_ADDR`` (host:port of
 the rendezvous), ``HVD_TPU_RANK`` and ``HVD_TPU_SIZE``. Without them the
 process is a world of one, rendezvousing with itself on a free localhost
 port. ``init(process_sets=...)`` makes one process group per set
-(:mod:`.mesh`); the host services — the collective dispatcher thread and
-the stall inspector — start with the world and stop with ``shutdown()``.
+(:mod:`.mesh`); the host services — the collective dispatcher thread, the
+stall inspector, and the telemetry (logging, the metrics endpoint, the
+timeline) — start with the world and stop with ``shutdown()``.
 With ``HVD_TPU_AUTOTUNE`` set, ``init()`` also makes the fusion-threshold
 autotuner (:mod:`.parameter_manager`) that ``DistributedOptimizer``
 feeds.
@@ -44,7 +45,17 @@ import torch
 import torch.distributed as dist
 
 from . import config as _config
+from . import metrics as _metrics
 from .exceptions import NotInitializedError
+
+_M_INITS = _metrics.counter(
+    "hvd_tpu_init_total",
+    "hvd.init() completions (elastic resets re-init, so a climbing count "
+    "on a long-lived process is a reset-rate signal).")
+_M_SHUTDOWNS = _metrics.counter(
+    "hvd_tpu_shutdown_total", "hvd.shutdown() completions.")
+_M_WORLD_SIZE = _metrics.gauge(
+    "hvd_tpu_world_size", "Process count of the current world.")
 
 
 @dataclasses.dataclass
@@ -82,6 +93,10 @@ class World:
     #: the fusion-threshold autotuner (parameter_manager.py), made at init
     #: when HVD_TPU_AUTOTUNE is set
     parameter_manager: Any = None
+    #: the chrome-tracing timeline (timeline.py; NULL_TIMELINE unless
+    #: HVD_TPU_TIMELINE is set on process 0) and the metrics endpoint
+    timeline: Any = None
+    metrics_server: Any = None
     #: the compiled-plane reduction's groups (mesh.py): the ("cross",
     #: "local") DeviceMesh and the flattened groups, made once per world
     groups: Dict[Any, Any] = dataclasses.field(default_factory=dict)
@@ -190,6 +205,15 @@ def init(process_sets: Optional[Sequence[Sequence[int]]] = None,
         # collective over the whole world)
         for i, ranks in enumerate(process_sets or ()):
             w.process_sets[i] = w.world_mesh.subset(list(ranks))
+        from .logging_setup import configure as _configure_logging
+        _configure_logging(cfg)
+        # the metrics gate and endpoint come up before the other host
+        # services so that their own startup telemetry is captured
+        w.metrics_server = _metrics.configure(w)
+        _M_INITS.inc()
+        _M_WORLD_SIZE.set(n)
+        from .timeline import maybe_start_timeline
+        w.timeline = maybe_start_timeline(w)
         w.stall_inspector = StallInspector(w)
         from .parameter_manager import maybe_create as _maybe_autotune
         w.parameter_manager = _maybe_autotune(w)
@@ -226,7 +250,15 @@ def shutdown() -> None:
             return
         if w.dispatcher is not None:
             w.dispatcher.stop()
+        w.timeline.close()
         w.stall_inspector.stop()
+        # drop the collective schedule ledger so an elastic reset's next
+        # generation restarts at sequence 0 on every rank
+        from . import _schedule
+        _schedule.reset()
+        _metrics.stop_http_server(w.metrics_server)
+        w.metrics_server = None
+        _M_SHUTDOWNS.inc()
         _world = None
         if w.failed and w.backend == "nccl":
             from torch.distributed import distributed_c10d

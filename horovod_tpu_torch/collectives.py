@@ -45,26 +45,120 @@ tensor in an NCCL world is copied to the card and its result copied back.
 * **Join**: see the section below; after ``join()`` a process contributes
   zeros to every reduction.
 
-The JAX package's in-jit route (``_injit_*``: a verb called on tracers
-lowers to an XLA collective inside the compiled program) has no torch
-counterpart. The metrics, fault sites, retry policy, schedule ledger,
-timeline and request tracing around its dispatch path belong to a later
-slice (ROADMAP A4).
+Telemetry and chaos sites of the dispatch path, as in the JAX package:
+
+* **metrics** (:mod:`.metrics`): ``hvd_tpu_collective_ops_total``,
+  ``hvd_tpu_collective_bytes_total`` and
+  ``hvd_tpu_collective_dispatch_seconds`` by verb (pre-bound per verb at
+  import, so the hot path pays plain increments),
+  ``hvd_tpu_dispatcher_queue_depth`` and
+  ``hvd_tpu_consistency_checks_total`` by result. The JAX package's
+  ``hvd_tpu_injit_lowerings_total`` is left out: its in-jit route (a verb
+  called on tracers lowers to an XLA collective inside the compiled
+  program) has no torch counterpart;
+* **fault sites** (:mod:`.faults`): one ``collective.<verb>`` point per
+  verb, fired at the top of the dispatched closure, before the
+  consistency exchange, so an injected fault (or its retry) can never
+  leave this process's exchange sequence mispaired with its peers';
+* **retry** (:mod:`.retry`): the dispatcher's ``RetryPolicy`` wraps only
+  that host-plane stage. A wire call (gloo, NCCL, CUDA) is never retried,
+  since a retried collective would desynchronize the ranks; its error
+  surfaces as HorovodInternalError;
+* **timeline** (:mod:`.timeline`): the verb's top-level span opens at
+  submit and the wire activity (``NCCL_ALLREDUCE``, ``GLOO_ALLGATHER``,
+  ...) spans the data's wire calls on the dispatcher;
+* **schedule ledger and request tracing** (:mod:`._schedule`,
+  :mod:`.tracing`): every submission is recorded in the ledger
+  (``HVD_TPU_SCHEDULE_CHECK``) and, when the submitting thread works for
+  a sampled request, as a ``collective:<verb>:<name>`` span.
 """
 
 import enum
 import queue
 import threading
+import time
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from . import _schedule as _sched
 from . import basics as _basics
 from . import config as _config
+from . import faults as _faults
+from . import metrics as _metrics
+from . import retry as _retry
+from . import timeline as _tl
+from . import tracing as _tracing
 from .exceptions import HorovodInternalError, TensorValidationError
 from .tensor_table import Handle, dtype_str, metadata_fingerprint
+
+_VERBS = ("allreduce", "grouped_allreduce", "allgather", "broadcast",
+          "grouped_broadcast", "alltoall")
+
+# -- telemetry (metrics.py): the JAX package's families, children pre-bound
+# per verb at import so the submit/dispatch hot path pays plain
+# increments, no label lookups; eager registration also makes every series
+# visible in scrapes before the first collective.
+_M_OPS = _metrics.counter(
+    "hvd_tpu_collective_ops_total",
+    "Eager collectives submitted, by verb.", labels=("op",))
+_M_BYTES = _metrics.counter(
+    "hvd_tpu_collective_bytes_total",
+    "Payload bytes submitted to eager collectives, by verb.",
+    labels=("op",))
+_M_LATENCY = _metrics.histogram(
+    "hvd_tpu_collective_dispatch_seconds",
+    "Dispatcher-thread stage+dispatch wall time per eager collective, by "
+    "verb (consistency exchange, staging, XLA dispatch; device "
+    "completion is asynchronous).", labels=("op",))
+_OP_METRICS = {
+    kind: (_M_OPS.labels(op=kind), _M_BYTES.labels(op=kind),
+           _M_LATENCY.labels(op=kind))
+    for kind in _VERBS}
+_M_QUEUE_DEPTH = _metrics.gauge(
+    "hvd_tpu_dispatcher_queue_depth",
+    "Eager collectives currently queued on the dispatcher thread.")
+_M_CONSISTENCY = _metrics.counter(
+    "hvd_tpu_consistency_checks_total",
+    "Cross-process metadata consistency checks, by result "
+    "(cached = ResponseCache fast path skipped the exchange).",
+    labels=("result",))
+_M_CONSISTENCY_CACHED = _M_CONSISTENCY.labels(result="cached")
+_M_CONSISTENCY_EXCHANGED = _M_CONSISTENCY.labels(result="exchanged")
+_M_CONSISTENCY_FAILED = _M_CONSISTENCY.labels(result="failed")
+
+# Chaos sites (faults.py): one point per verb, fired at the top of the
+# dispatched closure. Without HVD_TPU_FAULT_SPEC they are single-branch
+# no-ops.
+_FAULT_POINTS = {kind: _faults.FaultPoint(f"collective.{kind}")
+                 for kind in _VERBS}
+
+
+def _observed(w, kind: str, nbytes: int, fn):
+    """Count a submission now (caller thread: submissions are recorded
+    even if the dispatcher never runs them) and wrap ``fn`` so that its
+    fault site fires first, under the dispatcher's retry policy, and its
+    dispatcher-thread wall time lands in the verb's latency histogram."""
+    ops_c, bytes_c, lat_h = _OP_METRICS[kind]
+    ops_c.inc()
+    bytes_c.inc(nbytes)
+    fp = _FAULT_POINTS[kind]
+    retry = _dispatcher(w).retry
+
+    def wrapped():
+        t0 = time.perf_counter()
+        try:
+            retry.call(fp.fire, site="collective.dispatch")
+            return fn()
+        finally:
+            lat_h.observe(time.perf_counter() - t0)
+    return wrapped
+
+
+def _nbytes(ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
 
 
 class ReduceOp(enum.Enum):
@@ -265,10 +359,13 @@ def _wrap_error(e: BaseException) -> BaseException:
 
 
 class _Dispatcher:
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, cfg: _config.Config):
         self._device = device
         self._q: "queue.Queue" = queue.Queue()
         self._stopped = False
+        #: transient-vs-fatal policy of the host-plane stage of a dispatch
+        #: (the fault site, see _observed); wire calls are never retried
+        self.retry = _retry.RetryPolicy.from_config(cfg)
         self._thread = threading.Thread(
             target=self._run, daemon=True, name="hvd-tpu-torch-dispatcher")
         self._thread.start()
@@ -296,6 +393,10 @@ class _Dispatcher:
             # inside the single order, run inline
             self._execute(h, fn)
         else:
+            # inc BEFORE put: the dispatcher may pop and dec the instant
+            # the item lands, and inc-after would let a scrape read a
+            # negative depth
+            _M_QUEUE_DEPTH.inc()
             self._q.put((h, fn))
 
     def run_sync(self, fn):
@@ -315,7 +416,8 @@ class _Dispatcher:
         while True:
             item = self._q.get()
             if item is None:
-                break
+                break   # the stop() sentinel is never counted in the depth
+            _M_QUEUE_DEPTH.dec()
             self._execute(*item)
         # fail anything queued concurrently with stop(): do not hang it
         while True:
@@ -324,6 +426,7 @@ class _Dispatcher:
             except queue.Empty:
                 return
             if item is not None:
+                _M_QUEUE_DEPTH.dec()
                 h, _ = item
                 h.error = HorovodInternalError(_SHUT_DOWN)
                 h.event.set()
@@ -337,7 +440,7 @@ class _Dispatcher:
 def _dispatcher(w) -> _Dispatcher:
     with w.lock:
         if w.dispatcher is None:
-            w.dispatcher = _Dispatcher(w.device)
+            w.dispatcher = _Dispatcher(w.device, w.config)
         return w.dispatcher
 
 
@@ -373,22 +476,28 @@ def run_in_order(fn, inputs=(), outputs=()):
     return out
 
 
-def _submit(w, h: Handle, inputs, check, run) -> int:
-    """Hand a verb to the dispatcher: ``check`` (the consistency
-    exchange) runs first, then the dispatcher's stream waits for the
-    caller's, then ``run`` moves the data."""
+def _submit(w, h: Handle, kind: str, inputs, check, run) -> int:
+    """Hand verb ``kind`` to the dispatcher: its timeline span opens now;
+    on the dispatcher its fault site fires, ``check`` (the consistency
+    exchange) runs, the dispatcher's stream waits for the caller's, and
+    ``run`` moves the data inside the wire activity."""
     order = _stream_order(w)
     h.order = order
+    tl = w.timeline
+    name = h.name
+    tl.start(name, kind)
 
     def dispatch():
         check()
         if order is not None:
             order.enter(inputs)
+        tl.activity_start(name, _tl.wire_activity(w.backend, kind))
         out = run()
+        tl.activity_end(name)
         if order is not None:
             order.leave()
         return out
-    _dispatcher(w).submit(h, dispatch)
+    _dispatcher(w).submit(h, _observed(w, kind, _nbytes(inputs), dispatch))
     return h.id
 
 
@@ -416,6 +525,7 @@ def _check_consistency(w, wm, name, shape, dtype, kind, extra=""):
     cache_key = (hash(wm.cache_key) & 0xFFFFFFFF) << 32 | fp
     with w.consistency_lock:
         if w.response_cache.lookup(cache_key):
+            _M_CONSISTENCY_CACHED.inc()
             return
         w.consistency_seq = (w.consistency_seq + 1) & 0x7FFFFFFF
         words = _exchange_ints(w, wm, [w.consistency_seq, fp])
@@ -432,6 +542,7 @@ def _check_consistency(w, wm, name, shape, dtype, kind, extra=""):
                 "collectives every step and call join_round() once per "
                 "step.")
         if len(set(seqs)) > 1:
+            _M_CONSISTENCY_FAILED.inc()
             raise TensorValidationError(
                 f"Consistency-exchange sequence mismatch at collective "
                 f"{name!r} ({kind}): per-process exchange counts "
@@ -440,6 +551,7 @@ def _check_consistency(w, wm, name, shape, dtype, kind, extra=""):
                 f"response caches diverged). All processes must submit the "
                 f"same collectives in the same order." + join_hint)
         if len(set(fps)) > 1:
+            _M_CONSISTENCY_FAILED.inc()
             mine = fps[wm.my_index]
             bad = [i for i, x in enumerate(fps) if x != mine]
             raise TensorValidationError(
@@ -447,6 +559,7 @@ def _check_consistency(w, wm, name, shape, dtype, kind, extra=""):
                 f"processes {bad} submitted a different shape/dtype/op than "
                 f"process {wm.my_index}. All processes must submit "
                 f"identical requests for the same tensor name." + join_hint)
+        _M_CONSISTENCY_EXCHANGED.inc()
         w.response_cache.put(cache_key)
 
 
@@ -502,10 +615,10 @@ def _allreduce_submit(tensors, grouped, average, name, op, prescale,
     dtypes = tuple(t.dtype for t in ts)
     if grouped:
         _record_round(w, (kind, name, shapes, dtypes, op.value, prescale,
-                          postscale))
+                          postscale), process_set)
     else:
         _record_round(w, (kind, name, shapes[0], dtypes[0], op.value,
-                          prescale, postscale))
+                          prescale, postscale), process_set)
     # join state at submit: a collective submitted before join() carries
     # real data even if the dispatcher runs it after
     joined_at_submit = w.joined
@@ -524,7 +637,7 @@ def _allreduce_submit(tensors, grouped, average, name, op, prescale,
         vals = [torch.zeros_like(t) for t in ts] if joined_at_submit else ts
         outs = _reduce(w, wm, vals, op, prescale, postscale)
         return outs if grouped else outs[0]
-    return _submit(w, h, ts, check, run)
+    return _submit(w, h, kind, ts, check, run)
 
 
 def allreduce_async(tensor, average=None, name: Optional[str] = None,
@@ -611,12 +724,14 @@ def allgather_async(tensor, name: Optional[str] = None,
     t = _input(w, tensor)
     name = name or _auto_name(w, "allgather")
     h = w.tensor_table.begin(name, "allgather")
-    _record_round(w, ("allgather", name, tuple(t.shape), t.dtype))
+    _record_round(w, ("allgather", name, tuple(t.shape), t.dtype),
+                  process_set)
 
     def check():
         # only non-first dims must match across processes
         _check_consistency(w, wm, name, t.shape[1:], t.dtype, "allgather")
-    return _submit(w, h, [t], check, lambda: _allgather(w, wm, t))
+    return _submit(w, h, "allgather", [t], check,
+                   lambda: _allgather(w, wm, t))
 
 
 def allgather(tensor, name: Optional[str] = None,
@@ -661,7 +776,8 @@ def broadcast_async(tensor, root_rank: int, name: Optional[str] = None,
     t = _input(w, tensor)
     name = name or _auto_name(w, "broadcast")
     h = w.tensor_table.begin(name, "broadcast")
-    _record_round(w, ("broadcast", name, tuple(t.shape), t.dtype, root_rank))
+    _record_round(w, ("broadcast", name, tuple(t.shape), t.dtype, root_rank),
+                  process_set)
 
     def check():
         _check_consistency(w, wm, name, t.shape, t.dtype, "broadcast",
@@ -672,7 +788,7 @@ def broadcast_async(tensor, root_rank: int, name: Optional[str] = None,
         dist.broadcast(buf, src=wm.global_rank(root_rank), group=wm.group)
         COUNTS["broadcast"] += 1
         return buf.to(t.device)
-    return _submit(w, h, [t], check, run)
+    return _submit(w, h, "broadcast", [t], check, run)
 
 
 def broadcast(tensor, root_rank: int, name: Optional[str] = None,
@@ -696,14 +812,18 @@ def broadcast_(tensor: torch.Tensor, root_rank: int,
     h = w.tensor_table.begin(name, "broadcast")
     try:
         _record_round(w, ("broadcast", name, tuple(tensor.shape),
-                          tensor.dtype, root_rank))
+                          tensor.dtype, root_rank), process_set)
         order = _stream_order(w)
+        tl = w.timeline
+        tl.start(name, "broadcast")
 
         def run():
             _check_consistency(w, wm, name, tensor.shape, tensor.dtype,
                                "broadcast", str(root_rank))
             if order is not None:
                 order.enter([tensor])
+            tl.activity_start(name, _tl.wire_activity(w.backend,
+                                                      "broadcast"))
             src = wm.global_rank(root_rank)
             with torch.no_grad():
                 if tensor.device == w.device and tensor.is_contiguous():
@@ -713,9 +833,11 @@ def broadcast_(tensor: torch.Tensor, root_rank: int,
                     dist.broadcast(buf, src=src, group=wm.group)
                     tensor.copy_(buf)
             COUNTS["broadcast"] += 1
+            tl.activity_end(name)
             if order is not None:
                 order.leave()
-        _dispatcher(w).run_sync(run)
+        _dispatcher(w).run_sync(_observed(w, "broadcast", _nbytes([tensor]),
+                                          run))
         if order is not None:
             order.land([tensor])
     finally:
@@ -736,7 +858,8 @@ def grouped_broadcast_async(tensors: Sequence, root_rank: int,
     h = w.tensor_table.begin(name, "grouped_broadcast")
     shapes = tuple(tuple(t.shape) for t in ts)
     dtypes = tuple(t.dtype for t in ts)
-    _record_round(w, ("grouped_broadcast", name, shapes, dtypes, root_rank))
+    _record_round(w, ("grouped_broadcast", name, shapes, dtypes, root_rank),
+                  process_set)
 
     def check():
         wire_dtypes = tuple(dtype_str(d) for d in dtypes)
@@ -744,7 +867,7 @@ def grouped_broadcast_async(tensors: Sequence, root_rank: int,
                            "grouped_broadcast",
                            extra=lambda: f"{shapes}|{wire_dtypes}|"
                                          f"{root_rank}")
-    return _submit(w, h, ts, check,
+    return _submit(w, h, "grouped_broadcast", ts, check,
                    lambda: _broadcast_flat(w, wm, ts, root_rank))
 
 
@@ -782,7 +905,7 @@ def alltoall_async(tensor, splits=None, name: Optional[str] = None,
     name = name or _auto_name(w, "alltoall")
     h = w.tensor_table.begin(name, "alltoall")
     _record_round(w, ("alltoall", name, tuple(t.shape), t.dtype,
-                      tuple(splits)))
+                      tuple(splits)), process_set)
 
     def check():
         # splits are per-process data (alltoallv), not metadata
@@ -799,7 +922,7 @@ def alltoall_async(tensor, splits=None, name: Optional[str] = None,
                                input_split_sizes=splits, group=wm.group)
         COUNTS["alltoall"] += 1
         return out.to(t.device)
-    return _submit(w, h, [t], check, run)
+    return _submit(w, h, "alltoall", [t], check, run)
 
 
 def alltoall(tensor, splits=None, name: Optional[str] = None,
@@ -885,7 +1008,27 @@ def synchronize(handle: int):
 _JOIN_ROUND_NAME = "hvd.join.round"
 
 
-def _record_round(w, entry) -> None:
+def _wire_entry(entry) -> tuple:
+    """``entry`` with torch dtypes written as the JAX package writes them
+    (``float32``), so both packages' ledgers hash one sequence of verbs
+    alike."""
+    def conv(x):
+        if isinstance(x, torch.dtype):
+            return dtype_str(x)
+        if isinstance(x, tuple):
+            return tuple(conv(y) for y in x)
+        return x
+    return tuple(conv(x) for x in entry)
+
+
+def _record_round(w, entry, pset=None) -> None:
+    # schedule ledger first (HVD_TPU_SCHEDULE_CHECK, _schedule.py): the
+    # join markers are part of the cross-rank schedule even though the
+    # replay log below excludes them; then the request tracer
+    # (HVD_TPU_TRACE_SAMPLE, tracing.py). Both are a global load and an
+    # is-None test when off.
+    _sched.record(_wire_entry(entry), pset)
+    _tracing.collective(entry)
     if w.size == 1 or entry[1].startswith(("hvd.join.",
                                            "horovod_tpu.join.")):
         return

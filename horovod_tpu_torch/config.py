@@ -131,20 +131,11 @@ CHECKPOINT_KEEP_PERIOD = _register(
 # -- The launcher and elastic training (runner/, elastic/): the same names,
 #    aliases and defaults as horovod_tpu/config.py. The launcher writes the
 #    first group from its flags (runner/config_parser.py). The AUTOTUNE*
-#    knobs are read by parameter_manager.py; CYCLE_TIME, LOG_LEVEL and
-#    TIMELINE* wait for the port's timeline (ROADMAP A4). ----------------
+#    knobs are read by parameter_manager.py; CYCLE_TIME is written by the
+#    launcher for the JAX package's coordinator and read by nothing here.
 CYCLE_TIME = _register(
     "CYCLE_TIME", 1.0, float, alias="HOROVOD_CYCLE_TIME",
     help="Async-coordinator cycle time in milliseconds.")
-LOG_LEVEL = _register(
-    "LOG_LEVEL", "warning", str, alias="HOROVOD_LOG_LEVEL",
-    help="trace/debug/info/warning/error/fatal.")
-TIMELINE = _register(
-    "TIMELINE", "", str, alias="HOROVOD_TIMELINE",
-    help="Path for chrome://tracing JSON timeline (rank 0 only).")
-TIMELINE_MARK_CYCLES = _register(
-    "TIMELINE_MARK_CYCLES", False, _parse_bool,
-    alias="HOROVOD_TIMELINE_MARK_CYCLES")
 AUTOTUNE = _register(
     "AUTOTUNE", False, _parse_bool, alias="HOROVOD_AUTOTUNE")
 AUTOTUNE_LOG = _register(
@@ -318,6 +309,111 @@ SDC_STRIKES = _register(
     "SDC_STRIKES", 3, int,
     help="SDC detections charged to one host within the policy window "
          "before it is reported to the elastic driver and quarantined.")
+
+# -- Telemetry (logging_setup.py, timeline.py, tracing.py, metrics.py,
+#    _schedule.py): the JAX package's names, aliases and defaults. ---------
+LOG_LEVEL = _register(
+    "LOG_LEVEL", "warning", str, alias="HOROVOD_LOG_LEVEL",
+    help="trace/debug/info/warning/error/fatal.")
+LOG_HIDE_TIME = _register(
+    "LOG_HIDE_TIME", False, _parse_bool, alias="HOROVOD_LOG_HIDE_TIME")
+TIMELINE = _register(
+    "TIMELINE", "", str, alias="HOROVOD_TIMELINE",
+    help="Path for chrome://tracing JSON timeline (rank 0 only).")
+TIMELINE_MARK_CYCLES = _register(
+    "TIMELINE_MARK_CYCLES", False, _parse_bool,
+    alias="HOROVOD_TIMELINE_MARK_CYCLES")
+TIMELINE_QUEUE_EVENTS = _register(
+    "TIMELINE_QUEUE_EVENTS", 65536, int,
+    help="Bound on the timeline/tracer record queue (records, not "
+         "bytes). A slow or dead disk drops records beyond this, counted "
+         "in hvd_tpu_timeline_dropped_total, instead of growing the queue "
+         "without bound. 0 = unbounded.")
+TRACE_SAMPLE = _register(
+    "TRACE_SAMPLE", 0.0, float,
+    help="Head-based sampling rate for the per-request tracer "
+         "(tracing.py): the fraction of request ids traced, decided "
+         "deterministically from a hash of the id, so every process makes "
+         "the same call with no coordination. 0 (default) disables "
+         "tracing; 1 traces every request.")
+TRACE_DIR = _register(
+    "TRACE_DIR", "", str,
+    help="Directory for the tracer's per-process span files "
+         "(spans-rank<N>.jsonl, one JSON span per line), which `python -m "
+         "tools.trace` merges into one chrome://tracing timeline. Unset "
+         "keeps spans in the in-memory ring only.")
+METRICS = _register(
+    "METRICS", True, _parse_bool, alias="HOROVOD_METRICS",
+    help="Enable the metrics registry (counters/gauges/histograms across "
+         "the collective path). Set HVD_TPU_METRICS=0 to make every "
+         "instrumentation point a no-op.")
+METRICS_PORT = _register(
+    "METRICS_PORT", 0, int, alias="HOROVOD_METRICS_PORT",
+    help="Port for the Prometheus text-format HTTP endpoint (GET "
+         "/metrics). 0 (default) disables the endpoint; snapshots stay "
+         "available via hvd.metrics_snapshot().")
+METRICS_ADDR = _register(
+    "METRICS_ADDR", "0.0.0.0", str, alias="HOROVOD_METRICS_ADDR",
+    help="Bind address for the metrics endpoint (127.0.0.1 keeps it "
+         "local to the host).")
+METRICS_ALL_RANKS = _register(
+    "METRICS_ALL_RANKS", False, _parse_bool,
+    alias="HOROVOD_METRICS_ALL_RANKS",
+    help="Serve the metrics endpoint from every process instead of rank "
+         "0 only. Processes sharing a host need distinct "
+         "HVD_TPU_METRICS_PORT values; a failed bind logs a warning and "
+         "training continues.")
+SCHEDULE_CHECK = _register(
+    "SCHEDULE_CHECK", False, _parse_bool,
+    help="Enable the runtime collective schedule ledger: every eager "
+         "collective submission is fingerprinted (verb, name, dtype, "
+         "rank-invariant shape, process_set) into a per-rank rolling hash "
+         "published through the rendezvous KV store; on a stall deadline "
+         "the per-rank ledgers are diffed and the first mismatched call "
+         "site is named. Off by default.")
+
+# -- Inference serving (serving/): the JAX package's names and defaults. ----
+SERVING_MAX_BATCH = _register(
+    "SERVING_MAX_BATCH", 8, int,
+    help="Largest micro-batch (rows) the serving batcher coalesces "
+         "concurrent requests into: the top shape bucket. Must cover the "
+         "largest single request.")
+SERVING_BATCH_TIMEOUT_MS = _register(
+    "SERVING_BATCH_TIMEOUT_MS", 5.0, float,
+    help="Milliseconds the batcher holds an open micro-batch waiting for "
+         "more requests before dispatching it. 0 dispatches every request "
+         "alone.")
+SERVING_BUCKETS = _register(
+    "SERVING_BUCKETS", "", str,
+    help="Comma-separated static batch-shape buckets (rows) the serving "
+         "batcher pads micro-batches to, e.g. '1,2,4,8'. Empty (default) "
+         "= powers of two up to HVD_TPU_SERVING_MAX_BATCH.")
+SERVING_QUEUE_DEPTH = _register(
+    "SERVING_QUEUE_DEPTH", 64, int,
+    help="Admission control: bound on requests queued ahead of the "
+         "serving batcher. A request arriving at a full queue is rejected "
+         "at once (HTTP 503).")
+SERVING_DEADLINE_MS = _register(
+    "SERVING_DEADLINE_MS", 2000.0, float,
+    help="Default per-request deadline in milliseconds (callers can set "
+         "a per-request value). A request whose deadline expires before "
+         "its micro-batch is formed is answered HTTP 429 without touching "
+         "the device. 0 disables deadlines.")
+SERVING_PORT = _register(
+    "SERVING_PORT", 0, int,
+    help="Port for the inference HTTP front-end (POST /v1/infer, GET "
+         "/healthz). 0 (default) binds an ephemeral port.")
+SERVING_RELOAD_POLL_SECONDS = _register(
+    "SERVING_RELOAD_POLL_SECONDS", 10.0, float,
+    help="Seconds between checkpoint-directory polls for serving "
+         "hot-reload: when latest_step() moves past the serving step, the "
+         "engine restores the new step in the background and swaps it in "
+         "without dropping in-flight requests. 0 disables polling.")
+SERVING_WARMUP = _register(
+    "SERVING_WARMUP", True, _parse_bool,
+    help="Run every serving shape bucket once at engine start with "
+         "zero-filled inputs, so no live request pays a first call's "
+         "costs (kernel loads, cuBLAS heuristics).")
 
 HTTP_READ_TIMEOUT = _register(
     "HTTP_READ_TIMEOUT", 30.0, float,

@@ -1,25 +1,34 @@
-"""Metrics registry of horovod_tpu_torch (counterpart of the registry in
-``horovod_tpu/metrics.py``).
+"""Metrics of horovod_tpu_torch (counterpart of ``horovod_tpu/metrics.py``).
 
 A thread-safe registry of counters, gauges and fixed-bucket histograms,
 with the JAX package's family names, labels, text exposition and
-snapshot form, so both packages export the same series. Only the
-registry is here, in the pure-Python form (the JAX package's cells may be
-backed by its native runtime, which the port does not have), with the
-HTTP exporter the elastic launcher serves its counters on; the
-cross-rank summary and the workers' own endpoint come with the port's
-telemetry.
+snapshot form, so both packages export the same series for the same
+sequence of operations. The registry is pure Python (the JAX package's
+cells may be backed by its native runtime, which the port does not
+have).
 
-Read paths: :func:`snapshot` (a plain dict of every series, sorted),
-:func:`render_prometheus` (text format 0.0.4) and
-:func:`start_http_server` (``GET /metrics``). The registry is
-process-global and survives ``shutdown()``/``init()`` cycles.
+Read paths:
+
+1. :func:`snapshot` (``hvd.metrics_snapshot()``): a plain dict of every
+   series, sorted;
+2. a Prometheus text-format endpoint (``GET /metrics``,
+   :func:`start_http_server`), started by ``init()`` through
+   :func:`configure` when ``HVD_TPU_METRICS_PORT`` is set (rank 0 only,
+   unless ``HVD_TPU_METRICS_ALL_RANKS``); the elastic launcher serves its
+   own counters through the same exporter;
+3. :func:`metrics_allgather_summary` (``hvd.metrics_allgather_summary()``):
+   every rank's snapshot, all-gathered, and their :func:`aggregate`.
+
+The registry is process-global and survives ``shutdown()``/``init()``
+cycles; ``HVD_TPU_METRICS=0`` turns every write into a no-op.
 """
 
 import bisect
+import json
 from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 from . import _locks
+from . import config as _config
 
 #: Default latency buckets in seconds: 100us .. 10s, roughly logarithmic
 #: (Prometheus client default buckets).
@@ -414,3 +423,82 @@ def start_http_server(port: int, addr: str = "0.0.0.0",
 def stop_http_server(server) -> None:
     from . import _http
     _http.stop_server(server)
+
+
+def configure(world):
+    """Apply the metrics knobs at ``init()``: gate the registry on
+    ``HVD_TPU_METRICS`` and start the exposition endpoint when
+    ``HVD_TPU_METRICS_PORT`` is set (rank 0 only unless
+    ``HVD_TPU_METRICS_ALL_RANKS``). Returns the HTTP server or None;
+    ``basics.shutdown()`` stops it."""
+    cfg = world.config
+    REGISTRY.enabled = bool(cfg.get(_config.METRICS))
+    port = int(cfg.get(_config.METRICS_PORT))
+    if not REGISTRY.enabled or port <= 0:
+        return None
+    if world.rank != 0 and not cfg.get(_config.METRICS_ALL_RANKS):
+        return None
+    try:
+        return start_http_server(port, addr=cfg.get(_config.METRICS_ADDR))
+    except (OSError, OverflowError, ValueError) as e:
+        # an occupied port (two all-ranks processes on one host), a port
+        # out of range (>65535 raises OverflowError, not OSError), or a
+        # bad bind address must not kill training: metrics are advisory
+        import logging
+        logging.getLogger("horovod_tpu_torch").warning(
+            "metrics: could not bind exposition endpoint on port %d: %s",
+            port, e)
+        return None
+
+
+# ---------------------------------------------------------------------------
+# Read path #3: cross-rank aggregation.
+# ---------------------------------------------------------------------------
+
+def _merge_hist(a: dict, b: dict) -> dict:
+    buckets = dict(a["buckets"])
+    for le, c in b["buckets"].items():
+        buckets[le] = buckets.get(le, 0) + c
+    return {"buckets": buckets, "sum": a["sum"] + b["sum"],
+            "count": a["count"] + b["count"]}
+
+
+def aggregate(per_rank: Sequence[Dict[str, object]]) -> Dict[str, object]:
+    """Merge per-rank snapshots into one skew-revealing view: scalar
+    series become ``{"sum", "min", "max"}`` (a large max-min spread is
+    the skew signal: one rank's cache-miss storm or latency tail),
+    histograms merge bucket-wise."""
+    out: Dict[str, object] = {}
+    for snap in per_rank:
+        for name, v in snap.items():
+            if isinstance(v, dict):
+                out[name] = _merge_hist(out[name], v) if name in out \
+                    else dict(v)
+            else:
+                cur = out.get(name)
+                if cur is None:
+                    out[name] = {"sum": v, "min": v, "max": v}
+                else:
+                    cur["sum"] += v
+                    cur["min"] = min(cur["min"], v)
+                    cur["max"] = max(cur["max"], v)
+    return dict(sorted(out.items()))
+
+
+def metrics_allgather_summary() -> Dict[str, object]:
+    """Allgather every rank's snapshot and return
+    ``{"per_rank": [snap_rank0, ...], "aggregate": {...}}``: the
+    coordinator's one-call view of cross-rank skew. A collective: every
+    process must call it together. Requires ``hvd.init()``."""
+    from . import functions as _functions
+    snap = snapshot()
+    per_rank = _functions.allgather_object(
+        snap, name="hvd_tpu.metrics.summary")
+    return {"per_rank": per_rank, "aggregate": aggregate(per_rank)}
+
+
+def dump(path: str) -> None:
+    """Write the current snapshot as JSON (a postmortem without a
+    scraper)."""
+    with open(path, "w") as f:
+        json.dump(snapshot(), f, indent=2, sort_keys=True)

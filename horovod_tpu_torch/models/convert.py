@@ -26,12 +26,14 @@ import torch
 from .transformer import Transformer, TransformerConfig
 
 
-def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, Any]:
+def flatten(tree: Mapping, prefix: str = "") -> Dict[str, Any]:
+    """``{"layer_0": {"attn": {"wq": x}}}`` -> ``{"layer_0.attn.wq": x}``:
+    state_dict names from a nested tree (the inverse of :func:`nest`)."""
     flat = {}
     for key, val in tree.items():
         name = f"{prefix}{key}"
         if isinstance(val, Mapping):
-            flat.update(_flatten(val, name + "."))
+            flat.update(flatten(val, name + "."))
         else:
             flat[name] = val
     return flat
@@ -66,7 +68,7 @@ def params_from_flax(tree: Mapping, mesh=None) -> Dict[str, torch.Tensor]:
     train step holds there."""
     if set(tree) == {"params"}:
         tree = tree["params"]
-    flat = _flatten(tree)
+    flat = flatten(tree)
     cfg = _infer_config(flat)
     expected = {name: tuple(t.shape) for name, t in
                 Transformer(cfg, device="meta").state_dict().items()}
@@ -189,8 +191,8 @@ def cnn_params_from_flax(model: torch.nn.Module, variables: Mapping
     batch_stats, everything else is copied. Every leaf of the model must
     be in the tree with its shape and every leaf of the tree used, or
     ValueError is raised."""
-    trees = {"params": _flatten(variables["params"]),
-             "batch_stats": _flatten(variables.get("batch_stats", {}))}
+    trees = {"params": flatten(variables["params"]),
+             "batch_stats": flatten(variables.get("batch_stats", {}))}
     unknown = sorted(set(variables) - set(trees))
     if unknown:
         raise ValueError(f"unknown flax collections {unknown}")
@@ -248,7 +250,7 @@ def int8_residual_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     if set(tree) == {"params"}:
         tree = tree["params"]
     out = {}
-    for name, a in _flatten(tree).items():
+    for name, a in flatten(tree).items():
         a = np.array(a, dtype=np.float32)   # a copy
         if name.rsplit(".", 1)[-1] == "kernel" and a.ndim in (2, 4):
             a = np.ascontiguousarray(_torch_layout(a))

@@ -912,24 +912,46 @@ using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                    const cuuint32_t*, CUtensorMapInterleave,
                                    CUtensorMapSwizzle, CUtensorMapL2promotion,
                                    CUtensorMapFloatOOBfill);
+using CtxGetCurrentFn = CUresult (*)(CUcontext*);
+
+// a driver entry point (the library links the runtime only), or nullptr
+void* driver_fn(const char* name) {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+  const cudaError_t err = cudaGetDriverEntryPointByVersion(
+      name, &p, 12000, cudaEnableDefault, &found);
+#else
+  const cudaError_t err =
+      cudaGetDriverEntryPoint(name, &p, cudaEnableDefault, &found);
+#endif
+  if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+  return p;
+}
 
 EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) {
-      p = nullptr;
-    }
-    return reinterpret_cast<EncodeTiledFn>(p);
-  }();
+  static const EncodeTiledFn fn =
+      reinterpret_cast<EncodeTiledFn>(driver_fn("cuTensorMapEncodeTiled"));
   return fn;
+}
+
+// cuTensorMapEncodeTiled, a driver call, needs a context current on the
+// calling host thread. A thread whose CUDA work so far went through
+// PyTorch's caching allocator alone (a serving batcher's thread, when the
+// offset tensors are cached) has none, and the encode fails; the runtime
+// would make one current only at the launch, after it. So make the
+// context of the inputs' device current first, when none is.
+cudaError_t bind_context(const void* ptr) {
+  static const CtxGetCurrentFn get =
+      reinterpret_cast<CtxGetCurrentFn>(driver_fn("cuCtxGetCurrent"));
+  CUcontext ctx = nullptr;
+  if (get != nullptr && get(&ctx) == CUDA_SUCCESS && ctx != nullptr) {
+    return cudaSuccess;
+  }
+  cudaPointerAttributes attrs;
+  const cudaError_t err = cudaPointerGetAttributes(&attrs, ptr);
+  if (err != cudaSuccess) return err;
+  return cudaSetDevice(attrs.device);
 }
 
 // a 3-D tensor map over (D, S, BH) of a contiguous (BH, S, D) tensor, with
@@ -977,6 +999,8 @@ cudaError_t launch_wgmma(const Args& a) {
   }();
   if (sms < 1) return cudaErrorInvalidDevice;
   const long long blocks = tiles < sms ? tiles : sms;  // one per SM
+  const cudaError_t bound = bind_context(a.q);
+  if (bound != cudaSuccess) return bound;
   CUtensorMap tq, tk, tv, to;
   if (!make_map<T, D>(&tq, a.q, a.bh, a.sq, L::kQTile) ||
       !make_map<T, D>(&tk, a.k, a.bh, a.sk, kKeyTile) ||

@@ -25,6 +25,7 @@ block_q (see the kernel's note); its gradient is 0.
 
 import ctypes
 import math
+import threading
 from typing import Optional
 
 import torch
@@ -38,7 +39,10 @@ KEY_TILE = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 #: kernel launches, one added per launch of the CUDA kernel by its wrapper
+#: (under a lock: the serving batcher launches from its own thread while a
+#: training step launches from another)
 LAUNCHES = {"flash_fwd": 0}
+_LAUNCHES_LOCK = threading.Lock()
 
 _kernel = None
 _offsets = {}
@@ -194,7 +198,8 @@ def flash_fwd_cuda(q, k, v, q_offset=0, k_offset=0, causal: bool = True,
         _DTYPE_CODES[q.dtype], int(bool(causal)), float(sm_scale), stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
-    LAUNCHES["flash_fwd"] += 1
+    with _LAUNCHES_LOCK:
+        LAUNCHES["flash_fwd"] += 1
     return out, lse
 
 
@@ -291,7 +296,9 @@ def flash_attention_with_lse(q, k, v, causal: bool = True,
         sm_scale = 1.0 / math.sqrt(D)
 
     def to_bh(x):
-        return x.transpose(1, 2).reshape(B * H, x.shape[1], D)
+        # at B = 1 the reshape is a strided view, and the kernel takes
+        # contiguous (BH, S, D) tensors only
+        return x.transpose(1, 2).reshape(B * H, x.shape[1], D).contiguous()
     out, lse = FlashAttentionFunction.apply(
         to_bh(q), to_bh(k), to_bh(v), q_offset, k_offset, bool(causal),
         float(sm_scale))

@@ -7,12 +7,30 @@ Every process runs the same deterministic LRU with the same capacity and
 inserts a key only after a successful cross-process validation, so the
 caches never diverge on the hit path. Capacity comes from
 ``HVD_TPU_CACHE_CAPACITY`` (alias ``HOROVOD_CACHE_CAPACITY``, default
-1024; 0 disables caching).
+1024; 0 disables caching). Hits, misses and evictions are counted in the
+JAX package's metric families.
 """
 
 import collections
 import threading
 from typing import Optional
+
+from . import metrics as _metrics
+
+# Cache efficiency is the steady-state health signal of the collective
+# path: a hit means the consistency exchange (a wire round-trip) was
+# skipped; a miss storm on one rank shows in metrics_allgather_summary
+# long before it shows as lost throughput.
+_M_HITS = _metrics.counter(
+    "hvd_tpu_response_cache_hits_total",
+    "Response-cache hits (consistency exchange skipped).")
+_M_MISSES = _metrics.counter(
+    "hvd_tpu_response_cache_misses_total",
+    "Response-cache misses (full cross-process exchange performed).")
+_M_EVICTIONS = _metrics.counter(
+    "hvd_tpu_response_cache_evictions_total",
+    "Response-cache LRU evictions (capacity pressure; evicted "
+    "fingerprints re-validate on next submission).")
 
 
 class ResponseCache:
@@ -25,12 +43,14 @@ class ResponseCache:
     def lookup(self, key: int) -> bool:
         """True when ``key`` was validated before (refreshes LRU order)."""
         if self.capacity <= 0:
+            _M_MISSES.inc()  # disabled cache: every check re-exchanges
             return False
         with self._lock:
-            if key in self._lru:
+            hit = key in self._lru
+            if hit:
                 self._lru.move_to_end(key)
-                return True
-        return False
+        (_M_HITS if hit else _M_MISSES).inc()
+        return hit
 
     def put(self, key: int) -> Optional[int]:
         """Insert a validated key; returns the evicted key, if any."""
@@ -44,6 +64,8 @@ class ResponseCache:
             if len(self._lru) >= self.capacity:
                 victim, _ = self._lru.popitem(last=False)
             self._lru[key] = None
+        if victim is not None:
+            _M_EVICTIONS.inc()
         return victim
 
     def __len__(self) -> int:

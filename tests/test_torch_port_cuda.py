@@ -7,7 +7,9 @@ CPU suite). On the card, from the root of a checkout:
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
 (``--noconftest``: tests/conftest.py configures JAX, which these tests do
-not use.) Tolerances are chip_smoke.py's, and so is the check of a bf16 or
+not use.) The serving path's kernel calls (BH 12, 24, 48, 96 under
+``torch.inference_mode()`` on a worker thread) are among the cases.
+Tolerances are chip_smoke.py's, and so is the check of a bf16 or
 fp16 output: fp32 outputs within 1e-5 (order of fp32 sums only); bf16 and
 fp16 outputs within a per-element bound of one output rounding plus one
 rounding step of P, with at most 5% of the elements differing at all;
@@ -89,6 +91,47 @@ def test_rows_that_see_no_key_give_zero(cuda, dtype):
     out, lse, ref_lse = _check(q, k, v, 0, 10, True)  # rows 0-9 masked
     assert torch.count_nonzero(out[:, :10]) == 0
     assert (lse[:, 10:] - ref_lse[:, 10:]).abs().max().item() <= TOL_LSE
+
+
+@pytest.mark.parametrize("bucket", [1, 2, 4, 8])
+def test_kernel_in_inference_mode_on_a_worker_thread(cuda, bucket):
+    """The serving path's calls: the default transformer's attention at
+    buckets 1, 2, 4 and 8 (BH = bucket x 12 heads: 12, 24, 48, 96; S
+    2048, D 64, bf16, causal) through ``flash_attention_with_lse`` on
+    (B, S, H, D) tensors under torch.inference_mode(), from a thread that
+    is not the main one, as the serving batcher runs it; held to the
+    plain version with the bf16 limits."""
+    import threading
+    heads = 12
+    q, k, v = (t.view(bucket, heads, 2048, 64).transpose(1, 2)
+               for t in _qkv(cuda, torch.bfloat16, bucket * heads, 2048,
+                             2048, 64, seed=bucket))
+    box = {}
+
+    def run():
+        try:
+            with torch.inference_mode():
+                before = fa.LAUNCHES["flash_fwd"]
+                out, _ = fa.flash_attention_with_lse(q, k, v, causal=True)
+                box["launches"] = fa.LAUNCHES["flash_fwd"] - before
+                box["out"] = out.transpose(1, 2).reshape(
+                    bucket * heads, 2048, 64).clone()
+                torch.cuda.synchronize()
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            box["error"] = e
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(timeout=120)
+    assert not t.is_alive()
+    if "error" in box:
+        raise box["error"]
+    assert box["launches"] == 1
+    bh = [x.transpose(1, 2).reshape(bucket * heads, 2048, 64).contiguous()
+          for x in (q, k, v)]
+    ref, _ = fa.flash_fwd_plain(*bh, 0, 0, True)
+    ratio, share = half_agreement(torch, fa, box["out"], ref, *bh, 0, 0,
+                                  True)
+    assert ratio <= 1 and share <= MISMATCH_LIMIT, (ratio, share)
 
 
 def test_device_offsets_equal_int_offsets(cuda):
