@@ -163,6 +163,35 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
    with bytes equal to the gradients'; the schedule ledger is not empty.
    Prints the steady step ms beside the train phase's, the events
    written and spliced, and the scrape's ms.
+16. generation (runs in the main world, after serving): the generation
+   plane on the train phase's parameters (after serving's extra step),
+   the default TransformerConfig uncut, the GEN_* defaults (blocks of
+   16, 512 blocks, 8 sequences, prefill chunk 64, async depth 1, prefix
+   cache on). Each check prints its own JSON line: (a) paged parity: a
+   1024-token prompt in chunks of 64, then 16 single-token steps,
+   through the raw paged program, against the full-sequence forward
+   within TOL_PAGED_LOGIT (and the full forward's own distance from an
+   fp32 forward); (b) the prefill and decode programs' greedy tokens
+   equal the raw program's host argmax at the same shapes, B 8 over 64
+   steps; the decode step's ms at 8 live lanes and a 64-token prefill
+   chunk's; (c) wave G1: 8 clients on 127.0.0.1 send 32 /v1/generate
+   requests (prompts of 256-1024 tokens from numpy seed 0, 64 tokens,
+   greedy), every answer equal to a direct run of the engine; requests/s,
+   generated tokens/s, time to first token and inter-token latency p50
+   and p99 (taken on the scheduler thread); (d) seeded sampling
+   (temperature 0.8, top-k 50, top-p 0.95, 8 seeds) twice, equal; (e)
+   beam width 1 against greedy (tokens equal, logprobs within
+   TOL_GEN_LOGPROB); the stream route equal to the blocking one; a
+   cancel mid-generation answered 499; no KV block leaked; (f) the same
+   wave on an engine of 160 blocks: preempted at least once, no token
+   changed; (g) 8 prompts sharing a 512-token prefix: prefix-cache hits,
+   tokens equal to a run with the cache off; (h) ngram speculation:
+   tokens equal plain decode's, the accept rate; (i) a prefill-role and
+   a decode-role server: /v1/kv/offer pulls the longest prompt's blocks
+   over /v1/kv/fetch (bytes and ms), the continuation equal to the
+   colocated one. The flash kernel is launched 0 times: the paged path
+   reads through the model's default attention, as the JAX package's
+   does.
 
 Then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a
@@ -2353,6 +2382,486 @@ def telemetry_phase(torch, fa, cfg, train_losses, train_ms):
     return launches
 
 
+GEN_CLIENTS = 8
+GEN_REQUESTS = 32        # wave G1, 4 a client
+GEN_MAX_TOKENS = 64
+GEN_PROMPTS = (256, 1024)    # prompt lengths drawn in this range, seed 0
+GEN_PARITY_PROMPT = 1024
+GEN_PARITY_DECODE = 16
+GEN_GREEDY_STEPS = 64
+GEN_PREEMPT_BLOCKS = 160
+GEN_PREFIX = 512
+GEN_SEEDS = 8
+GEN_SPEC_PROMPTS = 8
+GEN_BEAM_PROMPTS = 4
+GEN_BEAM_TOKENS = 16
+# paged incremental logits against the full-sequence forward at the same
+# positions: both in bf16 activations, rounded along two routes (chunks
+# of 64 and single-token steps against one pass of 1040), so they differ
+# by bf16 rounding, not bit for bit (the JAX package's own bit-for-bit
+# pin of this, TestPagedParity, does not hold either); |logits| here is
+# a few units, where a bf16 step is 2^-8 to 2^-6
+TOL_PAGED_LOGIT = 0.05
+# beam width 1 against greedy decode: tokens equal; its logprobs move by
+# bf16 rounding only, because the beam computes the last prompt token's
+# K/V at the decode step's shape instead of inside a prefill chunk
+TOL_GEN_LOGPROB = 0.02
+
+
+def gen_paged_parity(torch, np, cfg, model, params):
+    """Chunked prefill of a 1024-token prompt plus 16 single-token decode
+    steps through the raw paged program, against the full-sequence
+    forward (and an fp32 forward, the bf16 noise floor)."""
+    import dataclasses
+    from horovod_tpu_torch.models import Transformer
+    from horovod_tpu_torch.models.transformer import PagedCache
+    from horovod_tpu_torch.serving.generation import (build_program,
+                                                      make_pools)
+    from horovod_tpu_torch.serving.generation.scheduler import DECODE_WIDTH
+    n, d, bs = GEN_PARITY_PROMPT, GEN_PARITY_DECODE, 16
+    total = n + d
+    toks = np.random.RandomState(2).randint(0, cfg.vocab_size, (total,))
+    raw = build_program(model)
+    nblocks = -(-total // bs)
+    k, v = make_pools(cfg, nblocks + 1, bs, device="cuda")
+    i32 = dict(dtype=torch.int32, device="cuda")
+    table = torch.zeros((1, cfg.max_seq_len // bs), **i32)
+    table[0, :nblocks] = torch.arange(1, nblocks + 1, **i32)
+    rows = []
+    with torch.inference_mode():
+        for start in range(0, n, 64):
+            chunk = torch.tensor(toks[None, start:start + 64], **i32)
+            cache = PagedCache(k, v, table, torch.tensor([start], **i32),
+                               torch.tensor([64], **i32))
+            logits, _ = raw(params, cache, chunk)
+            rows.append(logits[0])
+        for i in range(n, total):
+            buf = torch.zeros((1, DECODE_WIDTH), **i32)
+            buf[0, 0] = int(toks[i])
+            cache = PagedCache(k, v, table, torch.tensor([i], **i32),
+                               torch.tensor([1], **i32))
+            logits, _ = raw(params, cache, buf)
+            rows.append(logits[0, :1])
+        paged = torch.cat(rows)
+        x = torch.tensor(toks[None], dtype=torch.long, device="cuda")
+        full = torch.func.functional_call(model, params, (x,))[0]
+        model32 = Transformer(dataclasses.replace(cfg, dtype=torch.float32),
+                              device="meta")
+        full32 = torch.func.functional_call(model32, params, (x,))[0]
+    err = float((paged - full).abs().max())
+    floor = float((full - full32).abs().max())
+    argmax_equal = float((paged.argmax(-1) == full.argmax(-1)).float().mean())
+    return {"prompt": n, "decode_steps": d, "max_abs_err": err,
+            "tol": TOL_PAGED_LOGIT, "full_bf16_vs_fp32": floor,
+            "max_abs_logit": float(full.abs().max()),
+            "argmax_agreement": argmax_equal,
+            "ok": err <= TOL_PAGED_LOGIT}
+
+
+def gen_programs_vs_raw(torch, np, cfg, model, params):
+    """The prefill and decode programs' greedy tokens against the raw
+    program's host argmax at the same shapes, B 8 over 64 decode steps
+    (the raw program fed the decode program's tokens, so one mismatch
+    does not cascade); times the decode step at 8 live lanes and one
+    64-token prefill chunk."""
+    import dataclasses
+    from horovod_tpu_torch.models.transformer import PagedCache
+    from horovod_tpu_torch.serving.generation import (
+        DecodeState, SampleParams, build_decode_program,
+        build_prefill_program, build_program, make_pools)
+    from horovod_tpu_torch.serving.generation.scheduler import DECODE_WIDTH
+    B, bs, chunk = 8, 16, 64
+    per = -(-(chunk + GEN_GREEDY_STEPS + 1) // bs)
+    i32 = dict(dtype=torch.int32, device="cuda")
+    tables = torch.zeros((B, cfg.max_seq_len // bs), **i32)
+    for i in range(B):
+        tables[i, :per] = torch.arange(1 + i * per, 1 + (i + 1) * per, **i32)
+    ka, va = make_pools(cfg, 1 + B * per, bs, device="cuda")
+    kb, vb = make_pools(cfg, 1 + B * per, bs, device="cuda")
+    raw = build_program(model)
+    pre, dec = build_prefill_program(model), build_decode_program(
+        model, DECODE_WIDTH)
+    prompts = np.random.RandomState(3).randint(0, cfg.vocab_size, (B, chunk))
+
+    def sample(b):
+        return SampleParams(
+            temperature=torch.zeros(b, device="cuda"),
+            top_k=torch.zeros(b, **i32), top_p=torch.ones(b, device="cuda"),
+            key=torch.zeros((b, 2), dtype=torch.int64, device="cuda"),
+            emitted=torch.zeros(b, **i32), sampled=False)
+    mismatches, first = 0, []
+    with torch.inference_mode():
+        for i in range(B):
+            buf = torch.tensor(prompts[i:i + 1], **i32)
+            args = (tables[i:i + 1], torch.zeros(1, **i32),
+                    torch.tensor([chunk], **i32))
+            tok, _, _ = pre(params, PagedCache(ka, va, *args), buf,
+                            sample(1))
+            logits, _ = raw(params, PagedCache(kb, vb, *args), buf)
+            want = int(logits[0, chunk - 1].argmax())
+            mismatches += int(int(tok[0]) != want)
+            first.append(int(tok[0]))
+        state = DecodeState(
+            tokens=torch.tensor(first, **i32),
+            lengths=torch.full((B,), chunk, **i32),
+            live=torch.ones(B, **i32),
+            remaining=torch.full((B,), 10 ** 6, **i32),
+            eos=torch.full((B,), -1, **i32), sample=sample(B))
+        for step in range(GEN_GREEDY_STEPS):
+            buf = torch.zeros((B, DECODE_WIDTH), **i32)
+            buf[:, 0] = state.tokens
+            cache = PagedCache(kb, vb, tables, state.lengths,
+                               torch.ones(B, **i32))
+            logits, _ = raw(params, cache, buf)
+            want = logits[:, 0].argmax(-1)
+            ka, va, state, tok, _ = dec(params, ka, va, tables, state)
+            mismatches += int((tok.long() != want).sum())
+        # times: the decode step at 8 live lanes, one prefill chunk
+        lengths = state.lengths.clone()
+        at = dataclasses.replace(state, lengths=lengths)
+        decode_ms = cuda_ms(lambda: dec(params, ka, va, tables, at), 20)
+        buf = torch.tensor(prompts[:1], **i32)
+        args = (tables[:1], torch.zeros(1, **i32),
+                torch.tensor([chunk], **i32))
+        prefill_ms = cuda_ms(lambda: pre(params, PagedCache(ka, va, *args),
+                                         buf, sample(1)), 20)
+    # why the verify program runs at the decode step's shapes: is a row
+    # of the MLP's output product the same at other row counts?
+    w = params["layer_0.mlp.wo"].to(cfg.dtype)
+    h = torch.randn(64, w.shape[0], device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(5)).to(cfg.dtype)
+    ref = h[:2] @ w
+    rows_equal = {str(m): bool(torch.equal((h[:m] @ w)[:2], ref))
+                  for m in (2, 16, 40, 64)}
+    return {"lanes": B, "steps": GEN_GREEDY_STEPS, "mismatches": mismatches,
+            "decode_step_ms": decode_ms, "prefill_chunk_ms": prefill_ms,
+            "mlp_out_rows_equal_by_row_count": rows_equal,
+            "ok": mismatches == 0}
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))] if xs else math.nan
+
+
+def _post(url, doc, headers=None, timeout=300):
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        url, data=json.dumps(doc).encode(), method="POST",
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def _run_direct(engine, prompts, **kw):
+    """Every prompt submitted at once in this process; (tokens,
+    logprobs) by prompt."""
+    seqs = [engine.submit(p, **kw) for p in prompts]
+    return [(engine.result(s, timeout=600), list(s.logprobs)) for s in seqs]
+
+
+def _metric(name):
+    from horovod_tpu_torch import metrics
+    return metrics.snapshot().get(name, 0)
+
+
+def generation_phase(torch, fa, cfg, bundle):
+    """The generation plane at full width (module docstring, phase 16).
+    Returns its flash launches (none: the paged path reads through the
+    model's default attention)."""
+    import threading
+    import numpy as np
+    from horovod_tpu_torch import serving
+    from horovod_tpu_torch.models import Transformer
+    t_phase = time.perf_counter()
+    fa.LAUNCHES["flash_fwd"] = 0
+    model = Transformer(cfg, device="meta")
+    params = {n: p.detach().clone()
+              for n, p in bundle.model.named_parameters()}
+    checks, result = {}, {"phase": "generation",
+                          "config": "TransformerConfig() default, GEN_* "
+                                    "defaults"}
+
+    parity = gen_paged_parity(torch, np, cfg, model, params)
+    emit({"phase": "generation_paged_parity", **parity})
+    checks["paged_parity"] = parity["ok"]
+    programs = gen_programs_vs_raw(torch, np, cfg, model, params)
+    emit({"phase": "generation_programs", **programs})
+    checks["greedy_programs_equal_raw"] = programs["ok"]
+    torch.cuda.empty_cache()
+
+    rng = np.random.RandomState(0)
+    lengths = rng.randint(GEN_PROMPTS[0], GEN_PROMPTS[1] + 1, GEN_REQUESTS)
+    prompts = [rng.randint(0, cfg.vocab_size, (int(n),)).tolist()
+               for n in lengths]
+
+    # wave G1 over HTTP. Each token's emission time is taken on the
+    # scheduler thread (on_step, after every prefill chunk and decode
+    # step), each request's submit time on its handler thread.
+    seqs, submitted, times = {}, {}, {}
+
+    def on_step(phase, ids):
+        now = time.perf_counter()
+        for i in ids:
+            s = seqs.get(i)
+            if s is not None and s.generated:
+                times.setdefault(i, []).append((now, len(s.generated)))
+    engine = serving.GenerationEngine(model, params=params,
+                                      reload_poll_seconds=0, on_step=on_step)
+    submit = engine.submit
+
+    def recorded_submit(*a, **kw):
+        t = time.perf_counter()
+        s = submit(*a, **kw)
+        seqs[s.id] = s
+        submitted[s.id] = t
+        return s
+    engine.submit = recorded_submit
+    server = serving.InferenceServer(None, port=0, addr="127.0.0.1",
+                                     gen_engine=engine)
+    url = f"http://127.0.0.1:{server.start()}"
+    answers = [None] * GEN_REQUESTS
+    latency = [None] * GEN_REQUESTS
+
+    def client(c):
+        for j in range(c, GEN_REQUESTS, GEN_CLIENTS):
+            t = time.perf_counter()
+            answers[j] = _post(url + "/v1/generate",
+                               {"prompt": prompts[j],
+                                "max_tokens": GEN_MAX_TOKENS})
+            latency[j] = time.perf_counter() - t
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(GEN_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wave_s = time.perf_counter() - t0
+    wave_ids = sorted(seqs)
+    ttft, itl = [], []
+    for i in wave_ids:
+        ts = times.get(i, [])
+        if ts:
+            ttft.append(ts[0][0] - submitted[i])
+        for (ta, na), (tb, nb) in zip(ts, ts[1:]):
+            if nb > na:
+                itl.append((tb - ta) / (nb - na))
+    codes = [a[0] for a in answers]
+    got = [a[1].get("tokens") for a in answers]
+    direct = _run_direct(engine, prompts, max_tokens=GEN_MAX_TOKENS)
+    want = [t for t, _ in direct]
+    gen_tokens = sum(len(t or []) for t in got)
+    g1 = {"requests": GEN_REQUESTS, "clients": GEN_CLIENTS,
+          "prompt_tokens": int(lengths.sum()), "generated_tokens": gen_tokens,
+          "seconds": wave_s, "requests_per_s": GEN_REQUESTS / wave_s,
+          "generated_tokens_per_s": gen_tokens / wave_s,
+          "ttft_p50_ms": 1e3 * _pct(ttft, 0.5),
+          "ttft_p99_ms": 1e3 * _pct(ttft, 0.99),
+          "itl_p50_ms": 1e3 * _pct(itl, 0.5),
+          "itl_p99_ms": 1e3 * _pct(itl, 0.99),
+          "latency_p50_ms": 1e3 * _pct(latency, 0.5),
+          "latency_p99_ms": 1e3 * _pct(latency, 0.99),
+          "timing": "time to first token and inter-token gaps taken on "
+                    "the scheduler thread when each token is emitted; "
+                    "latency by the clients"}
+    emit({"phase": "generation_wave_g1", **g1})
+    checks["wave_all_200"] = codes == [200] * GEN_REQUESTS
+    checks["wave_equals_direct"] = got == want
+    checks["wave_full_length"] = all(len(t) == GEN_MAX_TOKENS for t in want)
+
+    # seeded sampling, twice
+    sprompts = [p[:128] for p in prompts[:GEN_SEEDS]]
+    kw = dict(max_tokens=32, temperature=0.8, top_k=50, top_p=0.95)
+    runs = []
+    for _ in range(2):
+        seqs_s = [engine.submit(p, seed=s, **kw)
+                  for s, p in enumerate(sprompts)]
+        runs.append([(engine.result(s, timeout=600), list(s.logprobs))
+                     for s in seqs_s])
+    seeded_equal = [t for t, _ in runs[0]] == [t for t, _ in runs[1]]
+    seeded_finite = all(math.isfinite(x) for _, lp in runs[0] for x in lp)
+    distinct = len({tuple(t) for t, _ in runs[0]})
+    emit({"phase": "generation_seeded", "seeds": GEN_SEEDS,
+          "identical_between_runs": seeded_equal,
+          "logprobs_finite": seeded_finite,
+          "distinct_continuations": distinct})
+    checks["seeded_repeat"] = seeded_equal and seeded_finite
+
+    # beam width 1 against greedy on this engine
+    bprompts = prompts[:GEN_BEAM_PROMPTS]
+    greedy = _run_direct(engine, bprompts, max_tokens=GEN_BEAM_TOKENS)
+    beam = _run_direct(engine, bprompts, max_tokens=GEN_BEAM_TOKENS,
+                       num_beams=1)
+    beam_err = max(abs(a - b) for (_, la), (_, lb) in zip(beam, greedy)
+                   for a, b in zip(la, lb))
+    beam_tokens_equal = [t for t, _ in beam] == [t for t, _ in greedy]
+
+    # stream and cancel on the wave's server
+    recs = []
+    import urllib.request
+    req = urllib.request.Request(
+        url + "/v1/generate/stream", method="POST",
+        data=json.dumps({"prompt": prompts[0],
+                         "max_tokens": GEN_MAX_TOKENS}).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        recs = [json.loads(ln) for ln in resp.read().decode().splitlines()
+                if ln.strip()]
+    stream_tokens = [r["t"] for r in recs if "t" in r]
+    stream_ok = stream_tokens == want[0] and recs[-1].get("done") is True
+    cancelled = {}
+
+    def long_request():
+        cancelled["r"] = _post(url + "/v1/generate",
+                               {"prompt": prompts[1], "max_tokens": 900},
+                               headers={"X-HVD-TPU-Request-Id": "gen-cancel"})
+    th = threading.Thread(target=long_request)
+    th.start()
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline and not any(
+            s.request_id == "gen-cancel" and len(s.generated) >= 8
+            for s in list(seqs.values())):
+        time.sleep(0.01)
+    cancel_code = _post(url + "/v1/cancel", {"request_id": "gen-cancel"})[0]
+    th.join(120)
+    code_cancel = cancelled.get("r", (None,))[0]
+    emit({"phase": "generation_beam_stream_cancel",
+          "beam1_tokens_equal_greedy": beam_tokens_equal,
+          "beam1_max_abs_err_logprob": beam_err,
+          "tol_logprob": TOL_GEN_LOGPROB,
+          "stream_equals_blocking": stream_ok,
+          "cancel_route": cancel_code, "cancelled_request": code_cancel})
+    checks["beam1_equals_greedy"] = beam_tokens_equal \
+        and beam_err <= TOL_GEN_LOGPROB
+    checks["stream_equals_blocking"] = stream_ok
+    checks["cancel_499"] = cancel_code == 200 and code_cancel == 499
+    checks["no_block_leaked"] = engine.allocator.in_use == 0
+    server.close()
+    torch.cuda.empty_cache()
+
+    # preemption: the same greedy wave in 160 blocks
+    pre_before = _metric("hvd_tpu_gen_preemptions_total")
+    with serving.GenerationEngine(model, params=params,
+                                  num_blocks=GEN_PREEMPT_BLOCKS,
+                                  reload_poll_seconds=0) as eng:
+        t0 = time.perf_counter()
+        pre_out = _run_direct(eng, prompts, max_tokens=GEN_MAX_TOKENS)
+        pre_s = time.perf_counter() - t0
+    preemptions = _metric("hvd_tpu_gen_preemptions_total") - pre_before
+    pre_equal = [t for t, _ in pre_out] == want
+    pre_diff = sum(1 for (t, _), w in zip(pre_out, want) if t != w)
+    emit({"phase": "generation_preemption",
+          "num_blocks": GEN_PREEMPT_BLOCKS, "preemptions": preemptions,
+          "tokens_equal_g1": pre_equal, "requests_differing": pre_diff,
+          "seconds": pre_s})
+    checks["preempted"] = preemptions >= 1
+    checks["preemption_changes_no_token"] = pre_equal
+
+    # prefix cache: 8 prompts sharing a 512-token prefix
+    prng = np.random.RandomState(4)
+    shared = prng.randint(0, cfg.vocab_size, (GEN_PREFIX,)).tolist()
+    pprompts = [shared + prng.randint(0, cfg.vocab_size, (64,)).tolist()
+                for _ in range(8)]
+    hit_key = 'hvd_tpu_gen_prefix_cache_hit_tokens_total{source="local"}'
+    outs = {}
+    for cache_on in (True, False):
+        with serving.GenerationEngine(model, params=params,
+                                      prefix_cache=cache_on,
+                                      reload_poll_seconds=0) as eng:
+            before = _metric(hit_key)
+            first = _run_direct(eng, pprompts[:1], max_tokens=16)
+            rest = _run_direct(eng, pprompts[1:], max_tokens=16)
+            outs[cache_on] = ([t for t, _ in first + rest],
+                              _metric(hit_key) - before)
+    emit({"phase": "generation_prefix_cache", "shared_prefix": GEN_PREFIX,
+          "prompts": len(pprompts), "hit_tokens": outs[True][1],
+          "tokens_equal_cold": outs[True][0] == outs[False][0]})
+    checks["prefix_hits"] = outs[True][1] > 0
+    checks["prefix_changes_no_token"] = outs[True][0] == outs[False][0]
+
+    # ngram speculation against plain greedy (wave G1's answers)
+    drafted0 = _metric("hvd_tpu_gen_spec_drafted_total")
+    accepted0 = _metric("hvd_tpu_gen_spec_accepted_total")
+    with serving.GenerationEngine(model, params=params, spec_mode="ngram",
+                                  reload_poll_seconds=0) as eng:
+        t0 = time.perf_counter()
+        spec = _run_direct(eng, prompts[:GEN_SPEC_PROMPTS],
+                           max_tokens=GEN_MAX_TOKENS)
+        spec_s = time.perf_counter() - t0
+        spec_tokens = eng.spec_tokens
+    drafted = _metric("hvd_tpu_gen_spec_drafted_total") - drafted0
+    accepted = _metric("hvd_tpu_gen_spec_accepted_total") - accepted0
+    spec_equal = [t for t, _ in spec] == want[:GEN_SPEC_PROMPTS]
+    spec_err = max(abs(a - b) for (_, la), (_, lb) in zip(
+        spec, direct[:GEN_SPEC_PROMPTS]) for a, b in zip(la, lb))
+    emit({"phase": "generation_speculative", "spec_tokens": spec_tokens,
+          "drafted": drafted, "accepted": accepted,
+          "accept_rate": accepted / drafted if drafted else 0.0,
+          "tokens_equal_plain": spec_equal,
+          "max_abs_err_logprob_vs_plain": spec_err, "seconds": spec_s})
+    checks["spec_equals_plain"] = spec_equal
+    torch.cuda.empty_cache()
+
+    # disaggregation: a prefill-role and a decode-role server
+    j = int(np.argmax(lengths))
+    pre_eng = serving.GenerationEngine(model, params=params, role="prefill",
+                                       reload_poll_seconds=0)
+    dec_eng = serving.GenerationEngine(model, params=params, role="decode",
+                                       reload_poll_seconds=0)
+    pre_srv = serving.InferenceServer(None, port=0, addr="127.0.0.1",
+                                      gen_engine=pre_eng)
+    dec_srv = serving.InferenceServer(None, port=0, addr="127.0.0.1",
+                                      gen_engine=dec_eng)
+    pre_url = f"http://127.0.0.1:{pre_srv.start()}"
+    dec_url = f"http://127.0.0.1:{dec_srv.start()}"
+    code_p, body_p = _post(pre_url + "/v1/generate",
+                           {"prompt": prompts[j],
+                            "max_tokens": GEN_MAX_TOKENS})
+    manifest = body_p.get("manifest", {})
+    t0 = time.perf_counter()
+    code_o, offer = _post(dec_url + "/v1/kv/offer", manifest)
+    offer_ms = 1e3 * (time.perf_counter() - t0)
+    hits0 = _metric('hvd_tpu_gen_prefix_cache_hit_tokens_total'
+                    '{source="transfer"}')
+    code_d, body_d = _post(dec_url + "/v1/generate",
+                           {"prompt": prompts[j],
+                            "max_tokens": GEN_MAX_TOKENS})
+    transfer_hits = _metric('hvd_tpu_gen_prefix_cache_hit_tokens_total'
+                            '{source="transfer"}') - hits0
+    pre_srv.close()
+    dec_srv.close()
+    from horovod_tpu_torch.serving.generation import block_bytes
+    disagg_equal = body_d.get("tokens") == want[j]
+    emit({"phase": "generation_disagg", "prompt_tokens": len(prompts[j]),
+          "blocks": len(manifest.get("hashes", [])),
+          "imported": offer.get("imported"), "bytes": offer.get("bytes"),
+          "block_bytes": block_bytes(cfg, 16), "offer_ms": offer_ms,
+          "transfer_hit_tokens": transfer_hits,
+          "continuation_equals_colocated": disagg_equal,
+          "codes": [code_p, code_o, code_d]})
+    checks["disagg_codes"] = [code_p, code_o, code_d] == [200, 200, 200]
+    checks["disagg_moved_blocks"] = bool(offer.get("imported")) \
+        and offer.get("error") is None and transfer_hits > 0
+    checks["disagg_equals_colocated"] = disagg_equal
+
+    launches = fa.LAUNCHES["flash_fwd"]
+    checks["no_flash_launches"] = launches == 0
+    result.update({"flash_launches": launches,
+                   "seconds": time.perf_counter() - t_phase,
+                   "checks": checks, "ok": all(checks.values())})
+    emit(result)
+    del params
+    torch.cuda.empty_cache()
+    if not result["ok"]:
+        raise AssertionError(f"generation phase failed: {checks}")
+    return {"generation": launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2401,6 +2910,7 @@ def main() -> int:
     cnn_phase(torch)
     serving_launches, serving_rows = serving_phase(torch, fa, cfg, bundle,
                                                    tokens, targets)
+    generation_launches = generation_phase(torch, fa, cfg, bundle)
     bundle.optimizer.remove_hooks()
     # last: its join() leaves this process contributing zeros
     collectives_phase(torch, hvd, collectives, bundle)
@@ -2423,6 +2933,7 @@ def main() -> int:
                                             "reductions":
                                                 reduction_launches,
                                             **serving_launches,
+                                            **generation_launches,
                                             "telemetry":
                                                 telemetry_launches},
                        "tensor_parallel_bh24": {

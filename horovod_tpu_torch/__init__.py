@@ -30,9 +30,10 @@ from .basics import (  # noqa: F401
 )
 from .collectives import (  # noqa: F401
     ReduceOp, Average, Sum, Adasum, Min, Max, Product,
-    allreduce, allreduce_async, grouped_allreduce, grouped_allreduce_async,
+    allreduce, allreduce_async, allreduce_, allreduce_async_,
+    grouped_allreduce, grouped_allreduce_async,
     allgather, allgather_async,
-    broadcast, broadcast_async, broadcast_,
+    broadcast, broadcast_async, broadcast_, broadcast_async_,
     grouped_broadcast, grouped_broadcast_async,
     alltoall, alltoall_async,
     poll, synchronize, release, join, join_round, joined, barrier,

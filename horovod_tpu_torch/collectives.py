@@ -91,6 +91,7 @@ from . import metrics as _metrics
 from . import retry as _retry
 from . import timeline as _tl
 from . import tracing as _tracing
+from .compression import Compression
 from .exceptions import HorovodInternalError, TensorValidationError
 from .tensor_table import Handle, dtype_str, metadata_fingerprint
 
@@ -494,6 +495,9 @@ def _submit(w, h: Handle, kind: str, inputs, check, run) -> int:
         tl.activity_start(name, _tl.wire_activity(w.backend, kind))
         out = run()
         tl.activity_end(name)
+        # close the verb's own span, opened at submit (the JAX package
+        # leaves it open, so later spans nest inside it in a viewer)
+        tl.end(name)
         if order is not None:
             order.leave()
         return out
@@ -650,13 +654,88 @@ def allreduce_async(tensor, average=None, name: Optional[str] = None,
                              prescale_factor, postscale_factor, process_set)
 
 
+def _differentiable(tensor) -> bool:
+    return isinstance(tensor, torch.Tensor) and tensor.requires_grad \
+        and torch.is_grad_enabled()
+
+
+def _allreduce_compressed(tensor, op, prescale, postscale, name,
+                          process_set, compression):
+    compressed, cctx = compression.compress(tensor)
+    out = synchronize(allreduce_async(
+        compressed, name=name, op=op, prescale_factor=prescale,
+        postscale_factor=postscale, process_set=process_set))
+    return compression.decompress(out, cctx)
+
+
+class _AllreduceFn(torch.autograd.Function):
+    """allreduce's gradient is the same allreduce of the upstream
+    gradient: same op, same scales, same compression (reference:
+    torch/mpi_ops.py:144-157)."""
+
+    @staticmethod
+    def forward(ctx, tensor, op, prescale, postscale, name, process_set,
+                compression):
+        ctx.args = (op, prescale, postscale, process_set, compression)
+        return _allreduce_compressed(tensor.detach(), op, prescale,
+                                     postscale, name, process_set,
+                                     compression)
+
+    @staticmethod
+    def backward(ctx, grad):
+        op, pre, post, process_set, compression = ctx.args
+        return (_allreduce_compressed(grad, op, pre, post, None,
+                                      process_set, compression),
+                None, None, None, None, None, None)
+
+
 def allreduce(tensor, average=None, name: Optional[str] = None,
               op: Optional[ReduceOp] = None, prescale_factor: float = 1.0,
-              postscale_factor: float = 1.0,
-              process_set=None) -> torch.Tensor:
-    """Synchronous allreduce (reference: torch/mpi_ops.py:158-200).
-    ``average`` is the legacy boolean knob; ``op`` takes precedence."""
-    return synchronize(allreduce_async(
+              postscale_factor: float = 1.0, process_set=None,
+              compression=Compression.none) -> torch.Tensor:
+    """Synchronous allreduce (reference: torch/mpi_ops.py:158-224).
+    ``average`` is the legacy boolean knob; ``op`` takes precedence.
+    ``compression`` casts the wire data and back (e.g.
+    ``Compression.bf16``). Differentiable: on a tensor that requires grad
+    (with grad mode on) the result has a ``grad_fn``, and the gradient
+    is the same allreduce of the upstream gradient."""
+    op = _resolve_op(average, op)
+    if _differentiable(tensor):
+        return _AllreduceFn.apply(tensor, op, prescale_factor,
+                                  postscale_factor, name, process_set,
+                                  compression)
+    return _allreduce_compressed(tensor, op, prescale_factor,
+                                 postscale_factor, name, process_set,
+                                 compression)
+
+
+def allreduce_async_(tensor: torch.Tensor, average=None,
+                     name: Optional[str] = None,
+                     op: Optional[ReduceOp] = None,
+                     prescale_factor: float = 1.0,
+                     postscale_factor: float = 1.0,
+                     process_set=None) -> int:
+    """Async in-place allreduce: ``synchronize(handle)`` writes the
+    reduced value into ``tensor`` and returns that same object
+    (reference: torch/mpi_ops.py allreduce_async_). The handle holds
+    ``tensor`` until then, so a temporary wrapper over live storage
+    (``p.grad.data``) still receives the write. Do not change ``tensor``
+    before synchronize."""
+    hid = allreduce_async(tensor, average=average, name=name, op=op,
+                          prescale_factor=prescale_factor,
+                          postscale_factor=postscale_factor,
+                          process_set=process_set)
+    _world().tensor_table.get(hid).target = tensor
+    return hid
+
+
+def allreduce_(tensor: torch.Tensor, average=None,
+               name: Optional[str] = None, op: Optional[ReduceOp] = None,
+               prescale_factor: float = 1.0, postscale_factor: float = 1.0,
+               process_set=None) -> torch.Tensor:
+    """In-place allreduce: ``tensor`` holds the reduced value on return,
+    and is returned (reference: torch/mpi_ops.py:225-253)."""
+    return synchronize(allreduce_async_(
         tensor, average=average, name=name, op=op,
         prescale_factor=prescale_factor, postscale_factor=postscale_factor,
         process_set=process_set))
@@ -734,11 +813,43 @@ def allgather_async(tensor, name: Optional[str] = None,
                    lambda: _allgather(w, wm, t))
 
 
+class _AllgatherFn(torch.autograd.Function):
+    """allgather's gradient: a sum-allreduce of the upstream gradient,
+    narrowed to this process's rows, whose offset comes from an
+    allgather of every process's first dim (ragged first dims allowed;
+    reference: torch/mpi_ops.py:290-308)."""
+
+    @staticmethod
+    def forward(ctx, tensor, name, process_set):
+        ctx.was_scalar = tensor.dim() == 0
+        ctx.dim0 = int(tensor.shape[0]) if tensor.dim() else 1
+        ctx.process_set = process_set
+        return synchronize(allgather_async(tensor.detach(), name=name,
+                                           process_set=process_set))
+
+    @staticmethod
+    def backward(ctx, grad):
+        ps = ctx.process_set
+        reduced = allreduce(grad, op=Sum, process_set=ps)
+        if reduced.dim() == 0:
+            return reduced, None, None
+        dims = allgather(torch.tensor([ctx.dim0], dtype=torch.int64),
+                         process_set=ps)
+        me = _mesh(_world(), ps).my_index
+        offset = int(dims[:me].sum())
+        piece = reduced[offset:offset + ctx.dim0]
+        if ctx.was_scalar:
+            piece = piece.reshape(())
+        return piece, None, None
+
+
 def allgather(tensor, name: Optional[str] = None,
               process_set=None) -> torch.Tensor:
     """Concatenate each process's tensor along dim 0 (reference:
     torch/mpi_ops.py:310-343). First dims may differ across processes;
-    other dims must match."""
+    other dims must match. Differentiable like the reference."""
+    if _differentiable(tensor):
+        return _AllgatherFn.apply(tensor, name, process_set)
     return synchronize(allgather_async(tensor, name=name,
                                        process_set=process_set))
 
@@ -791,12 +902,48 @@ def broadcast_async(tensor, root_rank: int, name: Optional[str] = None,
     return _submit(w, h, "broadcast", [t], check, run)
 
 
+class _BroadcastFn(torch.autograd.Function):
+    """broadcast's gradient: a sum-allreduce of the upstream gradient,
+    kept at the root and zero on every other process (reference:
+    torch/mpi_ops.py:375-389)."""
+
+    @staticmethod
+    def forward(ctx, tensor, root_rank, name, process_set):
+        ctx.root_rank = root_rank
+        ctx.process_set = process_set
+        return synchronize(broadcast_async(tensor.detach(), root_rank,
+                                           name=name,
+                                           process_set=process_set))
+
+    @staticmethod
+    def backward(ctx, grad):
+        ps = ctx.process_set
+        reduced = allreduce(grad, op=Sum, process_set=ps)
+        if _mesh(_world(), ps).my_index != ctx.root_rank:
+            reduced = torch.zeros_like(reduced)
+        return reduced, None, None, None
+
+
 def broadcast(tensor, root_rank: int, name: Optional[str] = None,
               process_set=None) -> torch.Tensor:
     """Every process receives root's value (reference:
-    torch/mpi_ops.py:345-389); the input is left as it is."""
+    torch/mpi_ops.py:345-389); the input is left as it is.
+    Differentiable like the reference."""
+    if _differentiable(tensor):
+        return _BroadcastFn.apply(tensor, root_rank, name, process_set)
     return synchronize(broadcast_async(tensor, root_rank, name=name,
                                        process_set=process_set))
+
+
+def broadcast_async_(tensor: torch.Tensor, root_rank: int,
+                     name: Optional[str] = None, process_set=None) -> int:
+    """Async in-place broadcast: ``synchronize(handle)`` writes root's
+    value into ``tensor`` and returns that same object (reference:
+    torch/mpi_ops.py broadcast_async_)."""
+    hid = broadcast_async(tensor, root_rank, name=name,
+                          process_set=process_set)
+    _world().tensor_table.get(hid).target = tensor
+    return hid
 
 
 def broadcast_(tensor: torch.Tensor, root_rank: int,
@@ -834,6 +981,7 @@ def broadcast_(tensor: torch.Tensor, root_rank: int,
                     tensor.copy_(buf)
             COUNTS["broadcast"] += 1
             tl.activity_end(name)
+            tl.end(name)
             if order is not None:
                 order.leave()
         _dispatcher(w).run_sync(_observed(w, "broadcast", _nbytes([tensor]),
@@ -984,6 +1132,11 @@ def synchronize(handle: int):
         r = h.result
         if h.order is not None:
             h.order.land(r if isinstance(r, list) else [r])
+        if h.target is not None:
+            # an in-place verb (allreduce_async_, broadcast_async_)
+            with torch.no_grad():
+                h.target.copy_(r)
+            r = h.target
         return r
     finally:
         w.tensor_table.finish(h)

@@ -21,6 +21,9 @@ class Knob:
     alias: Optional[str] = None
     help: str = ""
 
+    def aliases(self):
+        return () if self.alias is None else (self.alias,)
+
 
 _REGISTRY: Dict[str, Knob] = {}
 
@@ -424,6 +427,161 @@ HTTP_READ_TIMEOUT = _register(
          "wedged client can stall a response write. 0 disables the "
          "deadline.")
 
+# -- Generation serving (no reference equivalent — the continuous-batching
+#    decode plane, serving/generation/: paged KV cache + iteration-level
+#    scheduling for autoregressive models) ------------------------------------
+GEN_BLOCK_SIZE = _register(
+    "GEN_BLOCK_SIZE", 16, int,
+    help="Tokens per KV-cache block in the paged generation cache. "
+         "Smaller blocks track live tokens tighter (less padding waste "
+         "per sequence, at most block_size-1 slots); larger blocks mean "
+         "fewer allocator operations and block-table entries. The "
+         "decode program gathers max_seq_len/block_size blocks "
+         "per sequence, so the product with HVD_TPU_GEN_NUM_BLOCKS is "
+         "the pool's token capacity.")
+GEN_NUM_BLOCKS = _register(
+    "GEN_NUM_BLOCKS", 512, int,
+    help="KV-cache blocks in the generation pool (block 0 is reserved "
+         "as the null block for padded writes). Total cache memory is "
+         "num_blocks * block_size * 2KV * layers * heads * head_dim * "
+         "dtype bytes, allocated once at engine start; sequences "
+         "allocate blocks on growth and free on retirement, and "
+         "exhaustion preempts the youngest sequence "
+         "(hvd_tpu_gen_preemptions_total) instead of wedging.")
+GEN_MAX_SEQS = _register(
+    "GEN_MAX_SEQS", 8, int,
+    help="Decode batch slots: the most sequences the generation "
+         "scheduler decodes concurrently (the decode program's "
+         "static batch dimension). The iteration-level scheduler "
+         "re-forms the batch every step, so a freed slot is refilled "
+         "from the waiting line within one decode step.")
+GEN_PREFILL_CHUNK = _register(
+    "GEN_PREFILL_CHUNK", 64, int,
+    help="Prompt tokens processed per prefill call (the prefill "
+         "program's static chunk width). Long prompts are "
+         "split into chunks and interleaved with decode steps, so a "
+         "prompt of any length stalls in-flight decodes for at most "
+         "one chunk per step; larger chunks prefill faster but stall "
+         "decodes longer per step.")
+GEN_QUEUE_DEPTH = _register(
+    "GEN_QUEUE_DEPTH", 64, int,
+    help="Admission control for generation: bound on submitted "
+         "sequences not yet admitted to the running batch. A request "
+         "arriving at a full queue is rejected immediately (HTTP 503), "
+         "same policy as HVD_TPU_SERVING_QUEUE_DEPTH.")
+GEN_DEADLINE_MS = _register(
+    "GEN_DEADLINE_MS", 30000.0, float,
+    help="Default per-TOKEN generation deadline in milliseconds "
+         "(callers can set a per-request value): the allowed gap to "
+         "the next emitted token, reset on every emission. A sequence "
+         "that waits longer — parked at admission or preempted and "
+         "awaiting blocks — fails with the serving plane's deadline "
+         "error (HTTP 429). 0 disables deadlines.")
+GEN_ASYNC_DEPTH = _register(
+    "GEN_ASYNC_DEPTH", 1, int,
+    help="Decode steps the generation scheduler enqueues ahead of the "
+         "one it is waiting on (torch launches asynchronously): at the default 1, "
+         "step N+1 is speculatively in flight while the host consumes "
+         "step N's token vector, overlapping retire/admit/stream "
+         "delivery with device compute — a lane retired by step N "
+         "already routed step N+1's writes to the null block on "
+         "device, so speculation never corrupts the cache. 0 restores "
+         "the fully synchronous loop (debugging); values above 1 are "
+         "clamped to 1 (depth-1 reconciliation is what the scheduler "
+         "implements).")
+GEN_PREFIX_CACHE = _register(
+    "GEN_PREFIX_CACHE", True, _parse_bool,
+    help="Automatic prefix caching for the paged generation KV cache: "
+         "full blocks are indexed by a content chain hash, retired "
+         "blocks park in a cached-free LRU pool instead of being "
+         "recycled, and newly admitted prompts attach the longest "
+         "cached prefix with refcounts bumped so prefill starts at the "
+         "first uncached token. Sharing is full-block-only (the "
+         "partial tail block stays private), so cached-prefix decode "
+         "is bit-identical to cold decode. Set to 0 to restore the "
+         "recycle-immediately allocator.")
+GEN_SPEC_MODE = _register(
+    "GEN_SPEC_MODE", "off", str,
+    help="Speculative decoding for the generation plane: 'off' runs "
+         "the plain one-token decode loop; 'ngram' drafts by suffix-"
+         "matching the sequence's own prompt + emitted tokens (zero "
+         "extra model); 'draft' rolls a small draft model forward on "
+         "the host (the engine's draft_model/draft_params arguments). "
+         "Drafted tokens are verified in one paged forward per step "
+         "and the accepted prefix is exactly what the plain decoder "
+         "would have produced, so speculative output is bit-identical "
+         "to non-speculative for greedy AND seeded sampling, logprobs "
+         "included — the knob trades nothing but compute shape.")
+GEN_SPEC_TOKENS = _register(
+    "GEN_SPEC_TOKENS", 4, int,
+    help="Draft width for speculative decoding: tokens proposed (and "
+         "scored in one paged verify forward) per lane per step. "
+         "Static — it sizes the verify program's chunk (width "
+         "draft+1, padded to a multiple of the decode width). Higher widths "
+         "pay off only when the proposer's accept rate is high "
+         "(hvd_tpu_gen_spec_accepted_total / _drafted_total); rejected "
+         "draft positions are wasted compute, never cache corruption "
+         "(their K/V writes are rolled back through the null block).")
+GEN_BEAMS = _register(
+    "GEN_BEAMS", 4, int,
+    help="Maximum beam width the generation plane accepts per request "
+         "(the num_beams API field; 1 = beam search disabled for the "
+         "request). Static — it sizes the beam step's top-k "
+         "width. Beams share their common prefix KV blocks through "
+         "the refcounted prefix-cache substrate and copy-on-extend "
+         "only the divergent tail block; num_beams=1 output is "
+         "bit-identical to plain greedy decode.")
+
+# -- Disaggregated prefill/decode serving (serving/disagg/: pool-split
+#    fleet with content-addressed KV-block shipping) ------------------------
+DISAGG_ROLE = _register(
+    "DISAGG_ROLE", "colocated", str,
+    help="Operating mode of this replica's generation plane: "
+         "'colocated' (default) serves prefill AND decode exactly as "
+         "before; 'prefill' runs chunked prefill into the paged cache, "
+         "registers the prompt's full blocks in the prefix-cache index, "
+         "discards the sampled token, and answers /v1/generate with a "
+         "content-addressed KV manifest instead of tokens; 'decode' "
+         "serves generation normally but is the fleet's target for "
+         "POST /v1/kv/offer — transferred blocks register into its "
+         "BlockAllocator so admission attaches them with zero "
+         "full-block prefill debt. Byte-compatible: every colocated "
+         "path is untouched at the default.")
+DISAGG_WIRE_DTYPE = _register(
+    "DISAGG_WIRE_DTYPE", "native", str,
+    help="Element dtype for KV-block payloads on the /v1/kv/fetch "
+         "wire: 'native' (default) ships the pool dtype bit-exactly "
+         "(required for the disagg-vs-colocated bit-parity guarantee "
+         "when pools are fp32); 'bf16' packs blocks through the "
+         "bfloat16 wire codec, halving transfer bytes — lossless only "
+         "when the pools are already bf16.")
+DISAGG_FETCH_TIMEOUT_S = _register(
+    "DISAGG_FETCH_TIMEOUT_S", 5.0, float,
+    help="Socket timeout (seconds) for the decode replica's "
+         "POST /v1/kv/fetch pull of missing KV-block payloads from the "
+         "prefill replica. On expiry (or any fetch failure — e.g. the "
+         "prefill replica died mid-transfer) the offer degrades to a "
+         "decode-side re-prefill: correctness is never a function of "
+         "the transfer completing.")
+
+# -- Misc -------------------------------------------------------------------
+NUM_STREAMS = _register(
+    "NUM_STREAMS", 1, int, alias="HOROVOD_NUM_NCCL_STREAMS",
+    help="Number of round-robin dispatch lanes for fused collectives "
+         "in the JAX package. Registered so that one set of overrides "
+         "drives both packages; the port has one dispatcher and reads "
+         "it nowhere.")
+BATCH_D2D_MEMCOPIES = _register(
+    "BATCH_D2D_MEMCOPIES", True, _parse_bool,
+    alias="HOROVOD_BATCH_D2D_MEMCOPIES",
+    help="Accepted for parity with the JAX package, which does not read "
+         "it either.")
+ADASUM_MODE = _register(
+    "ADASUM_MODE", "auto", str,
+    help="Adasum hierarchy: auto|flat|hierarchical. Accepted for parity "
+         "with the JAX package, which does not read it either.")
+
+
 #: External-scheduler task-identity families (reference: MPI env detection
 #: that lets bare `mpirun/srun python train.py` work, docs/mpirun.rst), a
 #: copy of the JAX package's table. Each row is (rank, size, local_rank,
@@ -506,24 +664,44 @@ class Config:
         self._overrides[name] = value
 
     def get(self, name: str) -> Any:
+        return self.resolve(name)[0]
+
+    def resolve(self, name: str) -> "tuple[Any, str]":
+        """(value, source) with source one of 'override',
+        'env HVD_TPU_<N>', 'env <alias>', 'scheduler <VAR>', 'default'.
+        ``describe()`` prints this, so provenance can never drift from the
+        actual resolution order."""
         knob = _REGISTRY[name]
         if name in self._overrides:
-            return self._overrides[name]
+            return self._overrides[name], "override"
         raw = os.environ.get("HVD_TPU_" + knob.name)
-        if raw is None and knob.alias is not None:
-            raw = os.environ.get(knob.alias)
+        src = "env HVD_TPU_" + knob.name
+        for alias in knob.aliases():
+            if raw is not None:
+                break
+            raw = os.environ.get(alias)
+            src = f"env {alias}"
         if raw is None:
+            # external-scheduler fallback for the task-identity knobs
             if name in (RANK, SIZE, LOCAL_RANK, LOCAL_SIZE, CROSS_RANK,
                         CROSS_SIZE):
-                ident = mpi_task_identity()
+                ident, family = mpi_task_identity(with_source=True)
                 if name in ident:
-                    return ident[name]
-            return knob.default
+                    return ident[name], f"scheduler {family}"
+            return knob.default, "default"
         try:
-            return knob.parser(raw)
+            return knob.parser(raw), src
         except (TypeError, ValueError):
-            return knob.default
+            return knob.default, "default"
 
+    def snapshot(self) -> Dict[str, Any]:
+        return {name: self.get(name) for name in _REGISTRY}
+
+
+def knobs() -> Dict[str, Knob]:
+    """All registered knobs (the launcher builds its CLI flags from
+    them)."""
+    return dict(_REGISTRY)
 
 
 def live_config() -> "Config":
@@ -534,3 +712,17 @@ def live_config() -> "Config":
     if basics.is_initialized():
         return basics.world().config
     return Config()
+
+
+def describe(cfg: Optional[Config] = None) -> str:
+    """Every knob's live value and where it came from (override / env /
+    alias env / scheduler / default), one line each: the first thing to
+    check when a setting seems ignored. Uses the initialized world's
+    Config when one exists, else an env-only view."""
+    if cfg is None:
+        cfg = live_config()
+    lines = []
+    for name, knob in _REGISTRY.items():
+        value, src = cfg.resolve(name)
+        lines.append(f"{'HVD_TPU_' + knob.name:44s} = {value!r:24} [{src}]")
+    return "\n".join(lines)

@@ -15,7 +15,20 @@ against the tied embedding.
 Causal attention runs through ``cfg.attention_fn`` (``(q, k, v, mask,
 dtype) -> out`` on (B, S, H, D)); the default is :func:`_default_attention`,
 plain softmax attention. The training step injects the flash kernel there
-(parallel/train.py). The paged KV-cache path is not ported yet.
+(parallel/train.py).
+
+Paged incremental path (the generation plane,
+:mod:`horovod_tpu_torch.serving.generation`): given a :class:`PagedCache`,
+``forward`` runs one chunk of ``C`` tokens per row against a paged KV
+cache, as the JAX module does. Each layer scatters the chunk's K/V into
+fixed-size blocks of its pool through the rows' block tables (pad tokens
+and dead lanes write to the null block 0), then gathers each row's whole
+table back as one (B, T, H, D) view and reads it through
+:func:`_default_attention`, whatever ``cfg.attention_fn`` says, as the JAX
+module's paged path does. Positions come from ``cache.lengths``; the
+optional ``logits_at`` (B,) projects only that position of each row into
+the vocab. The pools are updated in place (``index_put_``), the
+counterpart of the JAX program's donated buffers.
 
 Sharded (``Transformer.shard_``, the training mesh's tp and fsdp): every
 parameter keeps only this process's block, by the logical axes of
@@ -56,6 +69,26 @@ class TransformerConfig:
     # injected attention implementation; default = plain softmax attention
     attention_fn: Optional[Callable] = None
     remat: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedCache:
+    """The paged-KV view threaded through one incremental forward.
+
+    ``k``/``v``: ``(num_layers, num_blocks, block_size, heads, head_dim)``
+    pools (block 0 reserved as the null block), written in place.
+    ``block_tables``: ``(B, max_blocks)`` int, each row mapping a
+    sequence's logical block index to a pool block (0-padded past its
+    allocation). ``lengths``: ``(B,)`` tokens already in each sequence's
+    cache (the chunk starts there). ``live``: ``(B,)`` how many of this
+    chunk's ``C`` tokens are real; pad tokens (and dead lanes, ``live ==
+    0``) write to the null block."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    block_tables: torch.Tensor
+    lengths: torch.Tensor
+    live: torch.Tensor
 
 
 def _default_attention(q, k, v, mask, dtype):
@@ -133,17 +166,59 @@ class Attention(nn.Module):
         self.wv = _normal((E, H, D), device, generator)
         self.wo = _normal((H, D, E), device, generator)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, layer_cache=None, groups=None):
         dt, sh = self.cfg.dtype, self.shard
-        if sh is not None:
-            x = sh.tp_in(x)
-        q = torch.einsum("bse,ehd->bshd", x, _use(sh, self.wq, dt))
-        k = torch.einsum("bse,ehd->bshd", x, _use(sh, self.wk, dt))
-        v = torch.einsum("bse,ehd->bshd", x, _use(sh, self.wv, dt))
-        attn = self.cfg.attention_fn or _default_attention
-        out = attn(q, k, v, mask, dt)
-        out = torch.einsum("bshd,hde->bse", out, _use(sh, self.wo, dt))
-        return out if sh is None else sh.tp_out(out)
+        if layer_cache is None:
+            if sh is not None:
+                x = sh.tp_in(x)
+            q = torch.einsum("bse,ehd->bshd", x, _use(sh, self.wq, dt))
+            k = torch.einsum("bse,ehd->bshd", x, _use(sh, self.wk, dt))
+            v = torch.einsum("bse,ehd->bshd", x, _use(sh, self.wv, dt))
+            attn = self.cfg.attention_fn or _default_attention
+            out = attn(q, k, v, mask, dt)
+            out = torch.einsum("bshd,hde->bse", out, _use(sh, self.wo, dt))
+            return out if sh is None else sh.tp_out(out)
+        # -- paged incremental path: this layer's (num_blocks, block_size,
+        # H, D) pools plus the batch's tables and positions. Every
+        # per-token product runs on each column group alone (see
+        # Transformer.forward's step_width).
+        k_slab, v_slab, block_tables, positions, live = layer_cache
+        wq, wk, wv = self.wq.to(dt), self.wk.to(dt), self.wv.to(dt)
+        xs = _split(x, groups)
+        qs = [torch.einsum("bse,ehd->bshd", xg, wq) for xg in xs]
+        k = _join([torch.einsum("bse,ehd->bshd", xg, wk) for xg in xs])
+        v = _join([torch.einsum("bse,ehd->bshd", xg, wv) for xg in xs])
+        B, C, H, D = k.shape
+        block_size = k_slab.shape[1]
+        # scatter the chunk's K/V through the block tables; pad tokens
+        # (and dead lanes) route to the null block 0. A pad position past
+        # the table clamps for the lookup: its block is replaced by 0.
+        blk_idx = (positions // block_size).clamp(
+            max=block_tables.shape[1] - 1)
+        offsets = positions % block_size
+        blocks = torch.gather(block_tables, 1, blk_idx)
+        valid = torch.arange(C, device=x.device)[None, :] < live[:, None]
+        blocks = torch.where(valid, blocks, torch.zeros_like(blocks))
+        k_slab.index_put_((blocks, offsets), k)
+        v_slab.index_put_((blocks, offsets), v)
+        # gather every table slot back as one (B, T, H, D) view:
+        # T = max_blocks * block_size, position t lives at index t
+        kc = k_slab[block_tables].reshape(B, -1, H, D)
+        vc = v_slab[block_tables].reshape(B, -1, H, D)
+        wo = self.wo.to(dt)
+        masks = [mask] if groups is None else [mask[:, :, g] for g in groups]
+        return _join([torch.einsum("bshd,hde->bse",
+                                   _default_attention(q, kc, vc, m, dt), wo)
+                      for q, m in zip(qs, masks)])
+
+
+def _split(x, groups):
+    """``x``'s column groups (dim 1), each contiguous; ``[x]`` for None."""
+    return [x] if groups is None else [x[:, g].contiguous() for g in groups]
+
+
+def _join(parts):
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
 class MlpBlock(nn.Module):
@@ -174,9 +249,13 @@ class DecoderLayer(nn.Module):
         self.ln2 = LayerNorm(cfg.d_model, cfg.dtype, device)
         self.mlp = MlpBlock(cfg, device, generator)
 
-    def forward(self, x, mask):
-        x = x + self.attn(self.ln1(x), mask)
-        return x + self.mlp(self.ln2(x))
+    def forward(self, x, mask, layer_cache=None, groups=None):
+        if layer_cache is None:
+            x = x + self.attn(self.ln1(x), mask)
+            return x + self.mlp(self.ln2(x))
+        h = _join([self.ln1(xg) for xg in _split(x, groups)])
+        x = x + self.attn(h, mask, layer_cache, groups)
+        return x + _join([self.mlp(self.ln2(xg)) for xg in _split(x, groups)])
 
 
 class Transformer(nn.Module):
@@ -221,10 +300,28 @@ class Transformer(nn.Module):
                 m.shard = sharding
         return self
 
-    def forward(self, tokens, pos_offset: int = 0):
+    def forward(self, tokens, pos_offset: int = 0,
+                cache: Optional[PagedCache] = None, logits_at=None,
+                step_width: Optional[int] = None):
         """``pos_offset``: the global position of ``tokens``' first column.
         A sequence shard (sp index i of shards of length S) passes i * S,
-        so its rows get the positions they have in the full sequence."""
+        so its rows get the positions they have in the full sequence.
+
+        With ``cache`` (a :class:`PagedCache`), the paged incremental
+        forward: returns ``(logits, cache)``, the logits (B, C, vocab)
+        or, with ``logits_at`` (B,), (B, vocab) at that position of each
+        row; the cache's pools hold the chunk's K/V on return.
+
+        ``step_width`` (paged path only): run every per-token product,
+        the attention read and each position's vocab projection on
+        groups of that many columns (the chunk's width a multiple of
+        it), each group at exactly the shapes of a decode step of that
+        width. A GEMM's row can round differently at another number of
+        rows (cuBLAS picks its kernel by shape), so a chunk that must
+        reproduce decode steps' logits bit for bit (the speculative
+        verify) runs this way."""
+        if cache is not None:
+            return self._paged_forward(tokens, cache, logits_at, step_width)
         cfg = self.cfg
         B, S = tokens.shape
         dt = cfg.dtype
@@ -251,3 +348,52 @@ class Transformer(nn.Module):
             return torch.matmul(x.float(), self.embedding.t())
         return torch.matmul(sh.tp_in(x).float(),
                             sh.gather(self.embedding).t())
+
+    def _paged_forward(self, tokens, cache: PagedCache, logits_at,
+                       step_width=None):
+        if self.shard is not None:
+            raise ValueError("the paged forward runs on whole parameters "
+                             "(a sharded model has none)")
+        cfg = self.cfg
+        dt = cfg.dtype
+        B, S = tokens.shape
+        dev = tokens.device
+        groups = None
+        if step_width is not None and step_width < S:
+            if S % step_width:
+                raise ValueError(f"chunk width {S} is not a multiple of "
+                                 f"step_width {step_width}")
+            groups = [slice(j, j + step_width)
+                      for j in range(0, S, step_width)]
+        # absolute positions from each sequence's cache length, clipped
+        # only to keep the pad tokens' embedding lookup in bounds (live
+        # tokens are validated against max_seq_len before submission)
+        positions = cache.lengths.long()[:, None] \
+            + torch.arange(S, device=dev)[None, :]
+        safe_pos = positions.clamp(0, cfg.max_seq_len - 1)
+        x = self.embedding.to(dt)[tokens.long()] \
+            + self.pos_embedding.to(dt)[safe_pos]
+        # gathered cache slot t holds absolute position t; a chunk query
+        # at absolute position p attends to every t <= p
+        t_max = cache.block_tables.shape[1] * cache.k.shape[2]
+        mask = (torch.arange(t_max, device=dev)[None, None, None, :]
+                <= positions[:, None, :, None])
+        tables = cache.block_tables.long()
+        live = cache.live.long()
+        for i, layer in enumerate(self.layers()):
+            x = layer(x, mask, (cache.k[i], cache.v[i], tables, positions,
+                                live), groups)
+        x = _join([self.ln_f(xg) for xg in _split(x, groups)])
+        # logits in fp32, weight-tied to the embedding
+        emb_t = self.embedding.t()
+        if logits_at is not None:
+            # project only the position each row samples from: the
+            # (B, C, vocab) logits never materialize
+            x = x[torch.arange(B, device=dev), logits_at.long()][:, None]
+            return torch.matmul(x.float(), emb_t)[:, 0], cache
+        if groups is not None:
+            # one position at a time, as a decode step projects its row
+            return torch.cat([torch.matmul(
+                x[:, i:i + 1].contiguous().float(), emb_t)
+                for i in range(S)], dim=1), cache
+        return torch.matmul(x.float(), emb_t), cache

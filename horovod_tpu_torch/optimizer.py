@@ -66,7 +66,7 @@ gets the reduced gradient, as every leaf of a JAX gradient tree does.
 
 import time
 import zlib
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -185,10 +185,14 @@ class DistributedOptimizer:
                  grad_process_sets=None, *, axis_name=None,
                  inner_axis=None, mesh=None,
                  reduce_strategy: str = "hierarchical",
-                 packing: str = "per_leaf"):
+                 packing: str = "per_leaf",
+                 fusion_threshold_bytes: Optional[int] = None):
         self._setup(optimizer, op, backward_passes_per_step, compression,
                     gradient_predivide_factor, axis_name, reduce_strategy,
                     packing)
+        #: a bucket size fixed for this optimizer, over the
+        #: HVD_TPU_FUSION_THRESHOLD knob and the autotuner
+        self._fixed_threshold = fusion_threshold_bytes
         if grad_process_sets is not None and (
                 op != _c.Average or named_parameters is None):
             raise ValueError("grad_process_sets needs op=Average and "
@@ -217,7 +221,7 @@ class DistributedOptimizer:
         #: (threshold, bucket plan as member names) at construction and
         #: after every re-plan the autotuner caused
         self.plans = []
-        self._plan(_basics.world().config.get(_config.FUSION_THRESHOLD))
+        self._plan(self._configured_threshold())
         # per-step state
         self._bucket_ready: Dict[int, Dict[int, torch.Tensor]] = {}
         self._handles: list = []
@@ -241,6 +245,11 @@ class DistributedOptimizer:
         self._compression = compression
         self._prescale = 1.0 / gradient_predivide_factor
         self._postscale = gradient_predivide_factor
+
+    def _configured_threshold(self) -> int:
+        if self._fixed_threshold is not None:
+            return int(self._fixed_threshold)
+        return _basics.world().config.get(_config.FUSION_THRESHOLD)
 
     def _plan(self, threshold: int) -> None:
         """Plan the buckets for ``threshold``: in reverse registration
@@ -391,7 +400,7 @@ class DistributedOptimizer:
             if w.device.type == "cuda":
                 torch.cuda.synchronize(w.device)
             pm.record(self._grad_bytes, time.perf_counter() - t0)
-        threshold = w.config.get(_config.FUSION_THRESHOLD)
+        threshold = self._configured_threshold()
         if threshold != self._threshold:
             self._plan(threshold)
 
@@ -528,15 +537,19 @@ class _CompiledPlaneOptimizer(DistributedOptimizer):
                  gradient_predivide_factor: float = 1.0,
                  grad_process_sets=None, *, axis_name, inner_axis=None,
                  mesh=None, reduce_strategy: str = "hierarchical",
-                 packing: str = "per_leaf"):
+                 packing: str = "per_leaf",
+                 fusion_threshold_bytes: Optional[int] = None):
         from .mesh import cross_local_mesh, flat_group
         from .models.convert import flax_order
         self._setup(optimizer, op, backward_passes_per_step, compression,
                     gradient_predivide_factor, axis_name, reduce_strategy,
                     packing)
-        if grad_process_sets is not None:
-            raise ValueError("grad_process_sets belongs to the eager plane "
-                             "(axis_name=None)")
+        if grad_process_sets is not None \
+                or fusion_threshold_bytes is not None:
+            raise ValueError("grad_process_sets and fusion_threshold_bytes "
+                             "belong to the eager plane (axis_name=None); "
+                             "the compiled plane's buckets are sized by "
+                             "HVD_TPU_INJIT_PACKED_THRESHOLD")
         self._strategy = reduce_strategy
         self._packing = packing
         named = {n: p for n, p in _named(optimizer, named_parameters)

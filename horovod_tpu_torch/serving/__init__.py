@@ -21,9 +21,18 @@ Quick start::
     with serving.InferenceServer(engine, port=8500):
         ...   # POST /v1/infer {"inputs": [[...], ...]}
 
-The generation plane (paged KV cache, continuous batching, the
-generation routes), the fleet router and disaggregated serving are not
-ported yet (ROADMAP A6).
+Its generation half:
+
+* :mod:`.generation`: :class:`GenerationEngine`, continuous batching
+  over a paged KV cache with on-device sampling, speculative and beam
+  decode, behind the same server (``InferenceServer(engine=None,
+  gen_engine=...)``: ``/v1/generate``, ``/v1/generate/stream``,
+  ``/v1/cancel``);
+* :mod:`.disagg`: the KV-block wire and the decode side's pull
+  (``/v1/kv/offer``, ``/v1/kv/fetch``), for prefill and decode
+  replicas.
+
+The fleet router (tenancy, rollout) is not ported yet.
 """
 
 from .batcher import (BucketedForward, DeadlineExceededError,  # noqa: F401
@@ -31,4 +40,5 @@ from .batcher import (BucketedForward, DeadlineExceededError,  # noqa: F401
                       bucket_for, parse_buckets)
 from .engine import (InferenceEngine, ParamsLifecycle,  # noqa: F401
                      ReloadCrashed, wait_for_step)
+from .generation import GenerationEngine                          # noqa: F401
 from .server import InferenceServer                               # noqa: F401

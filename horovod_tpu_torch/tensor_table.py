@@ -24,7 +24,8 @@ from .exceptions import DuplicateNameError
 class Handle:
     """An in-flight collective, resolved by ``synchronize()``/``poll()``."""
 
-    __slots__ = ("id", "name", "result", "error", "event", "order")
+    __slots__ = ("id", "name", "result", "error", "event", "order",
+                 "target")
 
     def __init__(self, hid: int, name: str):
         self.id = hid
@@ -36,6 +37,9 @@ class Handle:
         #: the CUDA stream order of the call (collectives._StreamOrder),
         #: None on the CPU
         self.order = None
+        #: the tensor an in-place verb writes its result into at
+        #: synchronize, held strongly until then
+        self.target = None
 
 
 class TensorTable:

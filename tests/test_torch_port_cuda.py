@@ -299,3 +299,51 @@ def test_resnet18_on_the_card_matches_the_cpu_path(cuda):
         torch.backends.cudnn.allow_tf32 = allow
     limits = cnn_limits()
     assert all(errs[k] <= limits[k] for k in limits), (errs, limits, info)
+
+
+def test_greedy_generation_on_the_card_equals_the_raw_program(cuda):
+    """One short greedy generation at the default TransformerConfig
+    (bf16 activations) through GenerationEngine on the card equals the
+    raw paged program's host argmax, step for step, and the pools stay
+    on the card."""
+    from horovod_tpu_torch.models.transformer import (PagedCache,
+                                                      Transformer,
+                                                      TransformerConfig)
+    from horovod_tpu_torch.serving.generation import (GenerationEngine,
+                                                      build_program,
+                                                      make_pools)
+    cfg = TransformerConfig()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = dict(Transformer(cfg, device=cuda, generator=gen)
+                  .named_parameters())
+    params = {n: p.detach() for n, p in params.items()}
+    model = Transformer(cfg, device="meta")
+    prompt = torch.randint(0, cfg.vocab_size, (40,),
+                           generator=torch.Generator().manual_seed(1))
+    prompt = prompt.tolist()
+    with GenerationEngine(model, params=params, num_blocks=64,
+                          block_size=16, max_seqs=4, prefill_chunk=64,
+                          reload_poll_seconds=0) as eng:
+        got = eng.generate(prompt, max_tokens=8, timeout=120)
+        assert eng.batcher._k.is_cuda and eng.batcher._v.is_cuda
+    # the raw program at the engine's shapes: a (1, 64) prefill chunk,
+    # (4, 2) decode steps with lane 0 live, tables 128 blocks wide
+    raw = build_program(model)
+    k, v = make_pools(cfg, 64, 16, device=cuda)
+    i32 = dict(dtype=torch.int32, device=cuda)
+    tables = torch.zeros((4, 128), **i32)
+    tables[0, :8] = torch.arange(1, 9, **i32)
+    toks = torch.tensor([prompt + [0] * 24], **i32)
+    cache = PagedCache(k, v, tables[:1], torch.zeros(1, **i32),
+                       torch.tensor([40], **i32))
+    logits, _ = raw(params, cache, toks)
+    want = [int(logits[0, 39].argmax())]
+    for i in range(7):
+        buf = torch.zeros((4, 2), **i32)
+        buf[0, 0] = want[-1]
+        cache = PagedCache(k, v, tables,
+                           torch.tensor([40 + i, 0, 0, 0], **i32),
+                           torch.tensor([1, 0, 0, 0], **i32))
+        logits, _ = raw(params, cache, buf)
+        want.append(int(logits[0, 0].argmax()))
+    assert got == want

@@ -392,3 +392,71 @@ def test_compiled_plane_reduction_catches_nothing():
         assert {f.name for f in fns} == set(names), rel
         assert not [n for f in fns for n in ast.walk(f)
                     if isinstance(n, ast.Try)], rel
+
+
+def test_generation_and_disagg_import_with_jax_blocked():
+    """The generation plane (paged cache, threefry, scheduler, spec,
+    engine), the disagg wire and pull, and the server with its
+    generation routes import with jax and the JAX package blocked and
+    load none of them."""
+    code = (
+        "import sys\n"
+        f"for m in {sorted(FORBIDDEN)!r}:\n"
+        "    sys.modules[m] = None\n"
+        "import horovod_tpu_torch.serving.generation as gen\n"
+        "import horovod_tpu_torch.serving.disagg as disagg\n"
+        "from horovod_tpu_torch.serving import GenerationEngine, "
+        "InferenceServer\n"
+        "from horovod_tpu_torch.serving.generation import _threefry\n"
+        "from horovod_tpu_torch.models.transformer import PagedCache\n"
+        "assert gen.ContinuousBatcher and gen.build_verify_program\n"
+        "assert disagg.pack_blocks and disagg.pull_and_import\n"
+        "bad = [m for m, mod in sys.modules.items() if mod is not None\n"
+        "       and m.split('.')[0] in ('horovod_tpu', 'jax', 'flax',\n"
+        "                               'optax')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+def test_generation_engine_defaults_to_cuda_and_raises_without():
+    from horovod_tpu_torch.serving.generation import GenerationEngine
+    from horovod_tpu_torch.serving.generation.kv_cache import make_pools
+    cfg = TransformerConfig(vocab_size=17, num_layers=1, d_model=8,
+                            num_heads=2, head_dim=4, max_seq_len=16)
+    model = Transformer(cfg, device="meta")
+    params = {n: torch.zeros(p.shape) for n, p in model.named_parameters()}
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GenerationEngine(model, params=params, num_blocks=4, block_size=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_pools(cfg, 4, 4)
+    with GenerationEngine(model, params=params, num_blocks=4, block_size=4,
+                          device="cpu") as eng:
+        assert eng.device.type == "cpu"
+
+
+def test_scheduler_step_has_no_cpu_retry():
+    """No ``except`` in the scheduler or the programs turns a device
+    failure into a retry on the CPU or on a plain version: a handler
+    names no CPU device and moves no tensor to the host, and the
+    programs catch nothing at all."""
+    path = os.path.join(PKG, "serving", "generation", "scheduler.py")
+    tree = ast.parse(open(path).read(), path)
+    handlers = [n for n in ast.walk(tree) if isinstance(n, ast.ExceptHandler)]
+    assert handlers
+    for h in handlers:
+        src = ast.get_source_segment(open(path).read(), h)
+        assert "cpu" not in src.lower(), src
+        assert ".to(" not in src and "numpy" not in src, src
+    for rel in (("serving", "generation", "kv_cache.py"),
+                ("serving", "generation", "_threefry.py"),
+                ("models", "transformer.py")):
+        p = os.path.join(PKG, *rel)
+        t = ast.parse(open(p).read(), p)
+        assert not [n for n in ast.walk(t) if isinstance(n, ast.Try)], rel
