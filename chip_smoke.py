@@ -183,8 +183,9 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
    beam width 1 against greedy (tokens equal, logprobs within
    TOL_GEN_LOGPROB); the stream route equal to the blocking one; a
    cancel mid-generation answered 499; no KV block leaked; (f) the same
-   wave on an engine of 160 blocks: preempted at least once, no token
-   changed; (g) 8 prompts sharing a 512-token prefix: prefix-cache hits,
+   wave on an engine of 160 blocks and a 120 s per-token deadline (its
+   last request waits over the 30 s default for a token): preempted at
+   least once, no token changed; (g) 8 prompts sharing a 512-token prefix: prefix-cache hits,
    tokens equal to a run with the cache off; (h) ngram speculation:
    tokens equal plain decode's, the accept rate; (i) a prefill-role and
    a decode-role server: /v1/kv/offer pulls the longest prompt's blocks
@@ -192,6 +193,50 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
    colocated one. The flash kernel is launched 0 times: the paged path
    reads through the model's default attention, as the JAX package's
    does.
+
+17. fleet (runs in the main world, after generation): the serving fleet
+   at full width on the train phase's parameters, every replica on the
+   one card and bound to 127.0.0.1, under HVD_TPU_FLEET_HEARTBEAT_INTERVAL
+   0.2 s and HVD_TPU_FLEET_HEARTBEAT_TIMEOUT 1.0 s (so an ejection must
+   land within 2.0 s) and a tenant table whose default tenant admits a
+   whole 8-client wave. Each check prints its own JSON line. (a) Wave F1:
+   two InferenceServer replicas (the serving phase's buckets, flash
+   kernel, each with a ReplicaHeartbeat) behind a FleetRouter; the
+   serving phase's 64 one-row 2048-token requests from 8 clients, first
+   straight to one replica and then through the router (distinct rows
+   from numpy seed 0), then through a router over one replica alone:
+   requests/s, p50/p99, each replica's share, the router's added p50
+   (with two replicas, and with one), and 12 flash launches per forward. Two replicas
+   share one card, so this is no scaling figure. (b) Failover: one
+   replica's server and beats stop mid-wave; it must be ejected within
+   2 x the heartbeat timeout and no request may fail. (c) Rolling
+   reload: the replica is readmitted, one training step commits step 2,
+   and rolling_reload moves the fleet to it under 8 clients: zero
+   failures, both /healthz at step 2, every answer after the rollout at
+   step 2; the drain ms and reload s of each replica. (d) Tenancy: a
+   tenant flooding at 4x its concurrency gets 429s, another tenant none.
+   Every 200 of (a)-(d) equals the live row of a direct forward of its
+   batch with its labelled step's parameters (TOL_SERVE_LOGPROB). (e)
+   Generation: two GenerationEngine replicas at the GEN_* defaults (the
+   first two stopped before); the first 16 G1 prompts through
+   /v1/generate equal a direct run; one /v1/generate/stream whose replica
+   is closed after 16 tokens is resumed by the router on the survivor,
+   and its 64 tokens must equal the uninterrupted greedy run exactly (on
+   a mismatch the line names the first differing position and the top-2
+   logit margin there). (f) Pooled disagg: a prefill-role and a
+   decode-role replica behind a pooled router; 8 requests equal the
+   colocated answers of (e) and a warm repeat moves 0 transfer bytes;
+   the transfer bytes and ms. (e) and (f) launch the flash kernel 0
+   times. Prints the phase's seconds.
+18. microbench (last): python -m horovod_tpu_torch.microbench's sections
+   in --quick mode on the card, one line per section; each section's own
+   assertions (outputs identical across modes, no block leaked, a warm
+   repeat moving 0 bytes) must hold. The worlds of CPU processes that
+   the module runs beside the card (eager_2proc, and the scaling points
+   above one process: gloo over CPU tensors, since NCCL puts no two
+   ranks on one card) are left out here: they do no work on the card.
+   eager_2proc's line says so; the CPU tests and the module's own driver
+   run them. Prints the phase's seconds.
 
 Then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a
@@ -2390,6 +2435,12 @@ GEN_PARITY_PROMPT = 1024
 GEN_PARITY_DECODE = 16
 GEN_GREEDY_STEPS = 64
 GEN_PREEMPT_BLOCKS = 160
+# the preemption wave's per-token deadline: all 32 requests are submitted
+# at once, and the last one admitted waits 33.5-41.7 s for a token on an
+# NVIDIA H100 80GB HBM3 at 700 W (horovod_tpu_torch/bench_preempt.py),
+# past the engine's 30 s default; the check is that preemption changes
+# no token, so the bound sits well above that wait
+GEN_PREEMPT_DEADLINE_MS = 120_000
 GEN_PREFIX = 512
 GEN_SEEDS = 8
 GEN_SPEC_PROMPTS = 8
@@ -2748,6 +2799,7 @@ def generation_phase(torch, fa, cfg, bundle):
     pre_before = _metric("hvd_tpu_gen_preemptions_total")
     with serving.GenerationEngine(model, params=params,
                                   num_blocks=GEN_PREEMPT_BLOCKS,
+                                  deadline_ms=GEN_PREEMPT_DEADLINE_MS,
                                   reload_poll_seconds=0) as eng:
         t0 = time.perf_counter()
         pre_out = _run_direct(eng, prompts, max_tokens=GEN_MAX_TOKENS)
@@ -2757,6 +2809,7 @@ def generation_phase(torch, fa, cfg, bundle):
     pre_diff = sum(1 for (t, _), w in zip(pre_out, want) if t != w)
     emit({"phase": "generation_preemption",
           "num_blocks": GEN_PREEMPT_BLOCKS, "preemptions": preemptions,
+          "deadline_ms": GEN_PREEMPT_DEADLINE_MS,
           "tokens_equal_g1": pre_equal, "requests_differing": pre_diff,
           "seconds": pre_s})
     checks["preempted"] = preemptions >= 1
@@ -2862,6 +2915,647 @@ def generation_phase(torch, fa, cfg, bundle):
     return {"generation": launches}
 
 
+# fleet phase (17): the router's liveness knobs, short so the drills fit
+# the run; the ejection bound is 2 x FLEET_HB_TIMEOUT
+FLEET_HB_INTERVAL = 0.2      # HVD_TPU_FLEET_HEARTBEAT_INTERVAL, seconds
+FLEET_HB_TIMEOUT = 1.0       # HVD_TPU_FLEET_HEARTBEAT_TIMEOUT, seconds
+FLEET_ROWS = 3072            # distinct one-row requests (numpy seed 0)
+FLEET_GEN_PROMPTS = 16       # G1 prompts sent through the router
+FLEET_STREAM_CUT = 16        # streamed tokens before the replica dies
+FLEET_DISAGG_REQUESTS = 8
+FLEET_GOOD_REQUESTS = 24
+# the default tenant is sized for the 8-client waves (the knob's default
+# of 4 concurrent would queue half of each wave in the router); the
+# flooder may have 2 in flight and 2 queued, and floods with 8 clients
+FLEET_TENANTS = {
+    "default": {"max_concurrent": 16, "max_queued": 64},
+    "good": {"keys": ["key-good"], "max_concurrent": 4, "max_queued": 16},
+    "flood": {"keys": ["key-flood"], "max_concurrent": 2, "max_queued": 2}}
+FLEET_FLOOD_CLIENTS = 8      # 4 x the flooder's concurrency
+
+
+def _http_json(url, body: bytes, headers=None, timeout=300):
+    """POST ``body``; (code, doc, headers)."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        url, data=body, method="POST",
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read()), dict(resp.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}"), dict(e.headers)
+    except Exception as e:  # noqa: BLE001 — recorded, fails the phase
+        return -1, {"error": repr(e)}, {}
+
+
+def _wait_for(pred, timeout: float, poll: float = 0.02):
+    """Seconds until ``pred()`` held (raises after ``timeout``)."""
+    t0 = time.monotonic()
+    while not pred():
+        if time.monotonic() - t0 > timeout:
+            raise AssertionError(f"condition not met within {timeout} s")
+        time.sleep(poll)
+    return time.monotonic() - t0
+
+
+def _top2_margin(torch, model, params, prefix):
+    """The gap between the two largest next-token logits after
+    ``prefix`` (a full-sequence forward): how near a tie the position
+    where two runs parted was."""
+    with torch.inference_mode():
+        x = torch.tensor([prefix], dtype=torch.long, device="cuda")
+        logits = torch.func.functional_call(model, params, (x,))[0, -1]
+        top = torch.topk(logits.float(), 2).values
+    return float(top[0] - top[1])
+
+
+def _fleet_env():
+    """The knobs every fleet of phase 17 is built under: the short
+    heartbeat and the tenant table (whose default tenant admits a whole
+    8-client wave: a request queued in the router past
+    HVD_TPU_SERVING_DEADLINE_MS, 2 s by default, is answered 429)."""
+    return {"HVD_TPU_FLEET_HEARTBEAT_INTERVAL": str(FLEET_HB_INTERVAL),
+            "HVD_TPU_FLEET_HEARTBEAT_TIMEOUT": str(FLEET_HB_TIMEOUT),
+            "HVD_TPU_FLEET_TENANTS": json.dumps(FLEET_TENANTS)}
+
+
+def fleet_phase(torch, fa, cfg, bundle, tokens, targets):
+    """The serving fleet at full width (module docstring, phase 17).
+    Returns the flash launches of its routed wave."""
+    import dataclasses
+    import shutil
+    import threading
+    import numpy as np
+    from horovod_tpu_torch import checkpointing as cp
+    from horovod_tpu_torch import serving
+    from horovod_tpu_torch.models import Transformer
+    from horovod_tpu_torch.parallel import flash_attention_fn
+    from horovod_tpu_torch.serving import fleet
+    from horovod_tpu_torch.serving.fleet import rollout
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_fleet")
+    shutil.rmtree(root, ignore_errors=True)
+    env = _fleet_env()
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    checks, result = {}, {"phase": "fleet",
+                          "config": "TransformerConfig() default",
+                          "heartbeat_interval_s": FLEET_HB_INTERVAL,
+                          "heartbeat_timeout_s": FLEET_HB_TIMEOUT}
+    mgr = cp.CheckpointManager(os.path.join(root, "ckpt"))
+    steps = {}
+
+    def commit(step):
+        steps[step] = {n: p.detach().clone()
+                       for n, p in bundle.model.named_parameters()}
+        mgr.save(step, steps[step], async_=False)
+    commit(1)
+
+    def flash_model():
+        return Transformer(dataclasses.replace(
+            cfg, attention_fn=flash_attention_fn), device="meta")
+    batches = []          # (replica, padded batch on the card) as served
+    lock = threading.Lock()
+
+    def make_engine(rid):
+        # one module per replica: functional_call swaps the parameters
+        # into the module it is given
+        apply = served_apply(torch, flash_model())
+
+        def recorded(params, x):
+            out = apply(params, x)
+            with lock:
+                batches.append((rid, x))
+            return out
+        return serving.InferenceEngine(
+            recorded, checkpoint_dir=mgr.directory,
+            max_batch=max(SERVE_BUCKETS), buckets=SERVE_BUCKETS,
+            batch_timeout_ms=5.0, queue_depth=64, deadline_ms=0,
+            reload_poll_seconds=0, warmup=True,
+            example=np.zeros(cfg.max_seq_len, np.float32))
+    rids = ("r0", "r1")
+    engines = {rid: make_engine(rid) for rid in rids}
+    servers = {rid: serving.InferenceServer(engines[rid], port=0,
+                                            addr="127.0.0.1")
+               for rid in rids}
+    ports = {rid: servers[rid].start() for rid in rids}
+    router = fleet.FleetRouter(
+        {rid: f"http://127.0.0.1:{ports[rid]}" for rid in rids},
+        port=0, addr="127.0.0.1")
+    router.start()
+    beats = {rid: fleet.ReplicaHeartbeat(router.url, rid) for rid in rids}
+    for b in beats.values():
+        b.start()
+    time.sleep(3 * FLEET_HB_INTERVAL)        # both replicas armed
+
+    rng = np.random.RandomState(0)
+    rows = rng.randint(0, cfg.vocab_size, (FLEET_ROWS, cfg.max_seq_len))
+    cursor = [0]
+    answers = []          # (row, code, doc, seconds, tag)
+
+    def take():
+        with lock:
+            i = cursor[0]
+            cursor[0] += 1
+        if i >= FLEET_ROWS - 1:
+            raise AssertionError("fleet phase ran out of distinct rows")
+        return i
+
+    flood_body = json.dumps({"inputs": [rows[-1].tolist()]}).encode()
+
+    def ask(url, tag, headers=None):
+        """One request; the flooder resends one row (its answers are held
+        to their codes only), every other request has a row of its own."""
+        if tag == "flood":
+            i, body = -1, flood_body
+        else:
+            i = take()
+            body = json.dumps({"inputs": [rows[i].tolist()]}).encode()
+        t = time.perf_counter()
+        code, doc, _ = _http_json(url + "/v1/infer", body, headers)
+        with lock:
+            answers.append((i, code, doc, time.perf_counter() - t, tag))
+        return code
+
+    def wave(url, tag, per_client):
+        def client():
+            for _ in range(per_client):
+                ask(url, tag)
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client)
+                   for _ in range(SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        return time.perf_counter() - t0
+
+    def loop_until(stop, url, tag, clients=SERVE_CLIENTS, headers=None):
+        def client():
+            while not stop.is_set():
+                ask(url, tag, headers)
+        threads = [threading.Thread(target=client) for _ in range(clients)]
+        for t in threads:
+            t.start()
+        return threads
+
+    def tagged(tag):
+        return [a for a in answers if a[4] == tag]
+
+    def wave_stats(tag, seconds):
+        got = tagged(tag)
+        lat = sorted(a[3] for a in got)
+        return {"requests": len(got), "seconds": seconds,
+                "requests_per_s": len(got) / seconds,
+                "p50_ms": 1e3 * _pct(lat, 0.5),
+                "p99_ms": 1e3 * _pct(lat, 0.99)}
+    try:
+        # (a) wave F1, straight to r0 and then through the router
+        direct_s = wave(f"http://127.0.0.1:{ports['r0']}", "direct",
+                        SERVE_REQUESTS)
+        first = len(batches)
+        fa.LAUNCHES["flash_fwd"] = 0
+        routed_s = wave(router.url, "f1", SERVE_REQUESTS)
+        launches = fa.LAUNCHES["flash_fwd"]
+        f1_batches = batches[first:]
+        share = {rid: sum(int((x.abs().sum(dim=1) > 0).sum())
+                          for r, x in f1_batches if r == rid)
+                 for rid in rids}
+        # the same wave through a router over r0 alone: what the router
+        # adds per request, apart from the split over two replicas
+        solo = fleet.FleetRouter({"r0": f"http://127.0.0.1:{ports['r0']}"},
+                                 port=0, addr="127.0.0.1")
+        solo.start()
+        try:
+            solo_s = wave(solo.url, "solo", SERVE_REQUESTS)
+        finally:
+            solo.stop()
+        d = wave_stats("direct", direct_s)
+        f1 = {"routed": wave_stats("f1", routed_s), "direct_to_r0": d,
+              "routed_to_r0_alone": wave_stats("solo", solo_s),
+              "replica_rows": share, "forwards": len(f1_batches),
+              "flash_launches": launches,
+              "note": "both replicas share one card: no scaling figure"}
+        f1["router_added_p50_ms"] = f1["routed"]["p50_ms"] - d["p50_ms"]
+        f1["router_alone_added_p50_ms"] = \
+            f1["routed_to_r0_alone"]["p50_ms"] - d["p50_ms"]
+        emit({"phase": "fleet_f1", **f1})
+        checks["f1_all_200"] = {a[1] for a in tagged("f1")} \
+            | {a[1] for a in tagged("solo")} == {200}
+        checks["f1_flash_12_per_forward"] = \
+            launches == cfg.num_layers * len(f1_batches)
+        checks["f1_both_replicas_served"] = min(share.values()) > 0
+
+        # (b) failover: r1 dies mid-wave
+        stop = threading.Event()
+        threads = loop_until(stop, router.url, "failover")
+        time.sleep(0.5)
+        beats["r1"].stop()
+        servers["r1"].stop()
+        eject_s = _wait_for(
+            lambda: router.health_doc()["replicas"]["r1"]["state"]
+            == "dead", 10.0)
+        time.sleep(0.5)
+        stop.set()
+        for t in threads:
+            t.join()
+        fo_codes = [a[1] for a in tagged("failover")]
+        emit({"phase": "fleet_failover", "requests": len(fo_codes),
+              "codes": sorted(set(fo_codes)), "eject_s": eject_s,
+              "bound_s": 2 * FLEET_HB_TIMEOUT})
+        checks["failover_no_request_failed"] = set(fo_codes) == {200}
+        checks["failover_ejected_within_2x_timeout"] = \
+            eject_s <= 2 * FLEET_HB_TIMEOUT
+
+        # (c) readmit r1, then roll the fleet to step 2 under traffic
+        servers["r1"] = serving.InferenceServer(
+            engines["r1"], port=ports["r1"], addr="127.0.0.1")
+        servers["r1"].start()
+        beats["r1"] = fleet.ReplicaHeartbeat(router.url, "r1")
+        beats["r1"].start()
+        readmit_s = _wait_for(
+            lambda: router.health_doc()["replicas"]["r1"]["state"] == "up",
+            10.0)
+        train_loss = bundle.step(tokens, targets).item()
+        commit(2)
+        marks = {rid: {} for rid in rids}
+        real_set, real_post = router.set_draining, rollout._post_reload
+
+        def timed_set(rid, draining):
+            if draining:
+                marks[rid]["drain_start"] = time.perf_counter()
+            real_set(rid, draining)
+
+        def timed_post(url, step, timeout):
+            rid = next(r for r in rids if router.replica_url(r) == url)
+            marks[rid]["drained"] = time.perf_counter()
+            out = real_post(url, step, timeout)
+            marks[rid]["reloaded"] = time.perf_counter()
+            return out
+        router.set_draining = timed_set
+        rollout._post_reload = timed_post
+        try:
+            stop = threading.Event()
+            threads = loop_until(stop, router.url, "reload")
+            time.sleep(0.3)
+            summary = fleet.rolling_reload(router, step=2,
+                                           drain_deadline=60.0)
+            stop.set()
+            for t in threads:
+                t.join()
+        finally:
+            router.set_draining = real_set
+            rollout._post_reload = real_post
+        wave(router.url, "after", 2)
+        health = {rid: _http_get_json(router.replica_url(rid) + "/healthz")
+                  for rid in rids}
+        rl = {"summary": summary, "readmit_s": readmit_s,
+              "train_loss": train_loss,
+              "requests": len(tagged("reload")),
+              "steps_seen": sorted({a[2].get("step") for a in
+                                    tagged("reload") if a[1] == 200}),
+              "drain_ms": {rid: 1e3 * (m["drained"] - m["drain_start"])
+                           for rid, m in marks.items()},
+              "reload_s": {rid: m["reloaded"] - m["drained"]
+                           for rid, m in marks.items()},
+              "engine_reload_s": {
+                  rid: engines[rid]._lifecycle.last_reload_seconds
+                  for rid in rids},
+              "healthz_step": {rid: h.get("step")
+                               for rid, h in health.items()}}
+        emit({"phase": "fleet_rollout", **rl})
+        checks["rollout_ok"] = summary.get("result") == "ok" \
+            and summary.get("replicas") == list(rids)
+        checks["rollout_no_request_failed"] = \
+            {a[1] for a in tagged("reload")} == {200}
+        checks["after_rollout_only_step_2"] = {
+            (a[1], a[2].get("step")) for a in tagged("after")} == {(200, 2)}
+        checks["both_healthz_step_2"] = \
+            all(h.get("step") == 2 for h in health.values())
+
+        # (d) tenancy: one tenant floods at 4x its concurrency
+        stop = threading.Event()
+        flood = loop_until(stop, router.url, "flood",
+                           clients=FLEET_FLOOD_CLIENTS,
+                           headers={fleet.API_KEY_HEADER: "key-flood"})
+        time.sleep(0.3)
+        for _ in range(FLEET_GOOD_REQUESTS):
+            ask(router.url, "good", {fleet.API_KEY_HEADER: "key-good"})
+        stop.set()
+        for t in flood:
+            t.join()
+        fl = [a[1] for a in tagged("flood")]
+        gd = [a[1] for a in tagged("good")]
+        emit({"phase": "fleet_tenancy", "tenants": FLEET_TENANTS,
+              "flood_clients": FLEET_FLOOD_CLIENTS,
+              "flood_requests": len(fl), "flood_429": fl.count(429),
+              "flood_200": fl.count(200), "good_requests": len(gd),
+              "good_codes": sorted(set(gd)),
+              "good_p99_ms": 1e3 * _pct([a[3] for a in tagged("good")],
+                                        0.99)})
+        checks["flood_rejected_429"] = fl.count(429) > 0 \
+            and set(fl) <= {200, 429}
+        checks["good_tenant_never_rejected"] = set(gd) == {200}
+    finally:
+        for b in beats.values():
+            b.stop()
+        router.stop()
+        for s in servers.values():
+            s.close()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    # every 200 of (a)-(d) against the live row of a direct forward of
+    # its batch, with the parameters of the step it was labelled with
+    direct_apply = served_apply(torch, flash_model())
+    where = {}
+    for b, (_, x) in enumerate(batches):
+        xc = x.cpu().numpy()
+        for j in range(int((np.abs(xc).sum(axis=1) > 0).sum())):
+            where.setdefault(xc[j].tobytes(), []).append((b, j))
+    direct, ok_tokens, max_err, unmatched = {}, True, 0.0, 0
+    for i, code, doc, _, _ in answers:
+        if code != 200 or i < 0:
+            continue
+        hits = where.get(rows[i].astype(np.float32).tobytes(), [])
+        if len(hits) != 1:
+            unmatched += 1
+            continue
+        (b, j), step = hits[0], doc["step"]
+        if (b, step) not in direct:
+            with torch.inference_mode():
+                direct[(b, step)] = direct_apply(steps[step],
+                                                 batches[b][1]).cpu()
+        want, got = direct[(b, step)][j], doc["outputs"][0]
+        ok_tokens = ok_tokens and got[0] == float(want[0])
+        max_err = max(max_err, abs(got[1] - float(want[1])))
+    del direct, batches
+    emit({"phase": "fleet_answers",
+          "answers_200": sum(1 for a in answers if a[1] == 200),
+          "unmatched": unmatched, "tokens_equal_direct": ok_tokens,
+          "max_abs_err_logprob": max_err, "tol_logprob": TOL_SERVE_LOGPROB})
+    checks["answers_equal_direct"] = ok_tokens and unmatched == 0 \
+        and max_err <= TOL_SERVE_LOGPROB
+    del steps
+    torch.cuda.empty_cache()
+    checks.update(fleet_generation(torch, fa, cfg, bundle))
+    shutil.rmtree(root, ignore_errors=True)
+    result.update({"flash_launches_f1": launches,
+                   "seconds": time.perf_counter() - t_phase,
+                   "checks": checks, "ok": all(checks.values())})
+    emit(result)
+    if not result["ok"]:
+        raise AssertionError(f"fleet phase failed: {checks}")
+    return {"fleet": launches}
+
+
+def _http_get_json(url, timeout=60):
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        return json.loads(resp.read())
+
+
+def _metric_delta(before, key):
+    from horovod_tpu_torch import metrics
+    return metrics.snapshot().get(key, 0) - before.get(key, 0)
+
+
+def fleet_generation(torch, fa, cfg, bundle):
+    """Phase 17 (e) and (f): generation replicas behind the router, the
+    mid-stream takeover, and the pooled prefill/decode fleet. Returns
+    its checks."""
+    import threading
+    import numpy as np
+    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch import serving
+    from horovod_tpu_torch.models import Transformer
+    from horovod_tpu_torch.serving import fleet
+    from horovod_tpu_torch.serving.generation import block_bytes
+    checks = {}
+    fa.LAUNCHES["flash_fwd"] = 0
+    params = {n: p.detach().clone()
+              for n, p in bundle.model.named_parameters()}
+    rng = np.random.RandomState(0)
+    lengths = rng.randint(GEN_PROMPTS[0], GEN_PROMPTS[1] + 1, GEN_REQUESTS)
+    prompts = [rng.randint(0, cfg.vocab_size, (int(n),)).tolist()
+               for n in lengths]
+    env = _fleet_env()
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+
+    def replica(role="colocated"):
+        engine = serving.GenerationEngine(
+            Transformer(cfg, device="meta"), params=params,
+            reload_poll_seconds=0, role=role)
+        srv = serving.InferenceServer(None, port=0, addr="127.0.0.1",
+                                      gen_engine=engine)
+        srv.start()
+        return srv
+
+    def fleet_of(srvs, pools=None):
+        router = fleet.FleetRouter(
+            {rid: f"http://127.0.0.1:{s.port}" for rid, s in srvs.items()},
+            port=0, addr="127.0.0.1", pools=pools)
+        router.start()
+        beats = [fleet.ReplicaHeartbeat(router.url, rid) for rid in srvs]
+        for b in beats:
+            b.start()
+        time.sleep(3 * FLEET_HB_INTERVAL)
+        return router, beats
+
+    def generate(url, prompt):
+        body = json.dumps({"prompt": prompt,
+                           "max_tokens": GEN_MAX_TOKENS}).encode()
+        return _http_json(url + "/v1/generate", body)
+    t0 = time.perf_counter()
+    srvs = {"r0": replica(), "r1": replica()}
+    router, beats = fleet_of(srvs)
+    try:
+        # (e) the first 16 G1 prompts through the router, 8 clients
+        gen = prompts[:FLEET_GEN_PROMPTS]
+        got = [None] * len(gen)
+
+        def client(c):
+            for j in range(c, len(gen), GEN_CLIENTS):
+                got[j] = generate(router.url, gen[j])
+        t1 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(GEN_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wave_s = time.perf_counter() - t1
+        want = [t for t, _ in _run_direct(srvs["r0"].gen_engine, gen,
+                                          max_tokens=GEN_MAX_TOKENS)]
+        codes = [g[0] for g in got]
+        tokens = [g[1].get("tokens") for g in got]
+        # the stream: baseline on r0 (where it will run), then a stream
+        # through the router whose replica dies after 16 tokens
+        sprompt = prompts[FLEET_GEN_PROMPTS]
+        base = _run_direct(srvs["r0"].gen_engine, [sprompt],
+                           max_tokens=GEN_MAX_TOKENS)[0][0]
+        before = metrics.snapshot()
+        import urllib.request
+        req = urllib.request.Request(
+            router.url + "/v1/generate/stream", method="POST",
+            data=json.dumps({"prompt": sprompt,
+                             "max_tokens": GEN_MAX_TOKENS}).encode(),
+            headers={"Content-Type": "application/json"})
+        records = []
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            while sum(1 for r in records if "t" in r) < FLEET_STREAM_CUT:
+                records.append(json.loads(resp.readline()))
+            served_by = [rid for rid in srvs
+                         if router.outstanding(rid) > 0]
+            for rid in served_by:
+                srvs[rid].close()
+            t_kill = time.perf_counter()
+            for line in resp:
+                if line.strip():
+                    records.append(json.loads(line))
+        resume_s = time.perf_counter() - t_kill
+        streamed = [r["t"] for r in records if "t" in r]
+        resumed = _metric_delta(
+            before, 'hvd_tpu_fleet_failovers_total{outcome="resumed"}')
+        first_diff = next((p for p, (a, b) in enumerate(zip(streamed, base))
+                           if a != b), None)
+        margin = None
+        if first_diff is not None:
+            margin = _top2_margin(torch, Transformer(cfg, device="meta"),
+                                  params, sprompt + base[:first_diff])
+        emit({"phase": "fleet_generation",
+              "requests": len(gen), "seconds": wave_s,
+              "requests_per_s": len(gen) / wave_s,
+              "codes": sorted(set(codes)),
+              "tokens_equal_direct": tokens == want,
+              "stream_replica_killed": served_by,
+              "stream_tokens": len(streamed), "cut_after": FLEET_STREAM_CUT,
+              "stream_equals_uninterrupted": streamed == base,
+              "first_differing_position": first_diff,
+              "top2_logit_margin_there": margin,
+              "errors_in_stream": [r for r in records if "error" in r],
+              "failovers_resumed": resumed,
+              "resume_to_end_s": resume_s})
+        checks["gen_all_200"] = codes == [200] * len(gen)
+        checks["gen_tokens_equal_direct"] = tokens == want
+        checks["stream_killed_one_replica"] = len(served_by) == 1
+        checks["stream_resumed_bit_identical"] = streamed == base \
+            and len(streamed) == GEN_MAX_TOKENS and resumed == 1 \
+            and records[-1].get("done") is True
+    finally:
+        for b in beats:
+            b.stop()
+        router.stop()
+        for s in srvs.values():
+            s.close()
+    torch.cuda.empty_cache()
+
+    # (f) one prefill-role and one decode-role replica
+    srvs = {"p0": replica("prefill"), "d0": replica("decode")}
+    router, beats = fleet_of(srvs, pools={"p0": "prefill", "d0": "decode"})
+    TB = "hvd_tpu_disagg_transfer_bytes_total"
+    TS = "hvd_tpu_disagg_transfer_seconds"
+    try:
+        dprompts = prompts[:FLEET_DISAGG_REQUESTS]
+        out = [None] * len(dprompts)
+
+        def dclient(j):
+            out[j] = generate(router.url, dprompts[j])
+        before = metrics.snapshot()
+        t1 = time.perf_counter()
+        dclient(0)
+        threads = [threading.Thread(target=dclient, args=(j,))
+                   for j in range(1, len(dprompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        disagg_s = time.perf_counter() - t1
+        moved = _metric_delta(before, TB)
+        moved_s = _metric_delta(before, TS)
+        before = metrics.snapshot()
+        repeat = generate(router.url, dprompts[0])
+        warm = _metric_delta(before, TB)
+        dtokens = [o[1].get("tokens") for o in out]
+        emit({"phase": "fleet_disagg", "requests": len(dprompts),
+              "seconds": disagg_s, "codes": sorted({o[0] for o in out}),
+              "transfer_bytes": moved, "transfer_ms": 1e3 * moved_s,
+              "block_bytes": block_bytes(cfg, 16),
+              "warm_repeat_transfer_bytes": warm,
+              "equals_colocated": dtokens == want[:len(dprompts)],
+              "warm_repeat_equal": repeat[1].get("tokens") == dtokens[0]})
+        checks["disagg_all_200"] = {o[0] for o in out} == {200} \
+            and repeat[0] == 200
+        checks["disagg_moved_blocks"] = moved > 0
+        checks["disagg_equals_colocated"] = \
+            dtokens == want[:len(dprompts)]
+        checks["disagg_warm_repeat_zero_bytes"] = warm == 0 \
+            and repeat[1].get("tokens") == dtokens[0]
+    finally:
+        for b in beats:
+            b.stop()
+        router.stop()
+        for s in srvs.values():
+            s.close()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    checks["gen_no_flash_launches"] = fa.LAUNCHES["flash_fwd"] == 0
+    emit({"phase": "fleet_generation_seconds",
+          "seconds": time.perf_counter() - t0})
+    del params
+    torch.cuda.empty_cache()
+    return checks
+
+
+def microbench_phase(torch):
+    """The port's microbenchmarks, --quick, on the card (module
+    docstring, phase 18): one line per section; each section's own
+    assertions raise."""
+    from horovod_tpu_torch import microbench
+    t0 = time.perf_counter()
+    lines = {}
+    for name in microbench.SECTIONS:
+        if name == "eager_2proc":
+            # a gloo world of two CPU processes: no work on the card
+            emit({"phase": "microbench", "section": name,
+                  "left_out": "a world of CPU processes, not the card's"})
+            continue
+        t = time.perf_counter()
+        lines[name] = {"phase": "microbench", "section": name,
+                       **microbench.run_section(name, True, "cuda",
+                                                cpu_worlds=False),
+                       "seconds": time.perf_counter() - t}
+        emit(lines[name])
+    gen = lines["generation"]["result"]
+    fo = lines["failover"]["result"]
+    dg = lines["disagg"]["result"]
+    checks = {
+        "spec_bit_identical": gen["generation_spec"]["bit_identical"],
+        "resume_bit_identical": fo["resume"]["bit_identical"],
+        "hedges_launched": fo["hedging"]["on"]["hedges_launched"] > 0,
+        "disagg_bit_identical": dg["bit_identical"],
+        "disagg_warm_repeat_zero_bytes":
+            dg["pooled"]["warm_repeat_transfer_bytes"] == 0,
+        "eager_on_card": lines["eager_1proc"]["device"] == "cuda",
+    }
+    result = {"phase": "microbench", "mode": "quick",
+              "seconds": time.perf_counter() - t0, "checks": checks,
+              "ok": all(checks.values())}
+    emit(result)
+    if not result["ok"]:
+        raise AssertionError(f"microbench phase failed: {checks}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2911,6 +3605,7 @@ def main() -> int:
     serving_launches, serving_rows = serving_phase(torch, fa, cfg, bundle,
                                                    tokens, targets)
     generation_launches = generation_phase(torch, fa, cfg, bundle)
+    fleet_launches = fleet_phase(torch, fa, cfg, bundle, tokens, targets)
     bundle.optimizer.remove_hooks()
     # last: its join() leaves this process contributing zeros
     collectives_phase(torch, hvd, collectives, bundle)
@@ -2921,6 +3616,7 @@ def main() -> int:
     estimator_launches, _ = estimator_phase(torch, fa, cfg, train_ms)
     reduction_launches = reductions_phase(torch, fa, cfg, losses)
     telemetry_launches = telemetry_phase(torch, fa, cfg, losses, train_ms)
+    microbench_phase(torch)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2934,6 +3630,7 @@ def main() -> int:
                                                 reduction_launches,
                                             **serving_launches,
                                             **generation_launches,
+                                            **fleet_launches,
                                             "telemetry":
                                                 telemetry_launches},
                        "tensor_parallel_bh24": {

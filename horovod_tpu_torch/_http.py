@@ -1,10 +1,11 @@
 """Shared HTTP-server plumbing: one async front-end for every endpoint
 (a copy of ``horovod_tpu/_http.py``).
 
-In the JAX package four subsystems front themselves with the same server
-idiom — the rendezvous KV store (``runner/rendezvous.py``), the
-Prometheus metrics endpoint (``metrics.py``), the inference serving
-front-end and the fleet router; the port has the first two so far. The original implementation was a
+Four subsystems front themselves with the same server idiom — the
+rendezvous KV store (``runner/rendezvous.py``), the Prometheus metrics
+endpoint (``metrics.py``), the inference serving front-end
+(``serving/server.py``), and the fleet router
+(``serving/fleet/router.py``). The original implementation was a
 ``ThreadingHTTPServer``: one OS thread per *connection*, which makes the
 connection ceiling the thread ceiling — a fleet front-end holding tens
 of thousands of keep-alive clients would hold tens of thousands of

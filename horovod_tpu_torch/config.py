@@ -532,6 +532,122 @@ GEN_BEAMS = _register(
          "only the divergent tail block; num_beams=1 output is "
          "bit-identical to plain greedy decode.")
 
+# -- Serving fleet (serving/fleet/: the router tier over N replica
+#    servers: health-aware balancing, per-tenant admission, rolling
+#    hot-reload) -----------------------------------------------------
+FLEET_PORT = _register(
+    "FLEET_PORT", 0, int,
+    help="Port for the fleet router's HTTP front-end (POST /v1/infer / "
+         "/v1/generate proxied to replicas, GET /healthz, POST "
+         "/fleet/heartbeat/<replica>). 0 (default) binds an ephemeral "
+         "port (read it back from FleetRouter.port).")
+FLEET_HEARTBEAT_INTERVAL = _register(
+    "FLEET_HEARTBEAT_INTERVAL", 1.0, float,
+    help="Seconds between replica liveness beats to the fleet router "
+         "(the serving-plane reuse of the elastic heartbeat layer). "
+         "Also the router monitor's sweep interval, so ejection latency "
+         "is bounded by timeout + interval.")
+FLEET_HEARTBEAT_TIMEOUT = _register(
+    "FLEET_HEARTBEAT_TIMEOUT", 5.0, float,
+    help="Seconds of beat silence after which the router ejects an "
+         "armed replica from routing (detection within 2x this bound; "
+         "clamped to 2x the interval so one dropped beat never ejects). "
+         "A replica whose beats resume is re-admitted automatically. "
+         "0 disables heartbeat ejection (passive circuit signals still "
+         "apply).")
+FLEET_CIRCUIT_THRESHOLD = _register(
+    "FLEET_CIRCUIT_THRESHOLD", 3, int,
+    help="Consecutive connect-errors/5xx responses from one replica "
+         "that open its circuit (stop routing to it). A half-open probe "
+         "(GET /healthz) re-closes the circuit on success; probes back "
+         "off with full jitter between HVD_TPU_FLEET_PROBE_BACKOFF and "
+         "HVD_TPU_FLEET_PROBE_MAX_BACKOFF.")
+FLEET_PROBE_BACKOFF = _register(
+    "FLEET_PROBE_BACKOFF", 0.2, float,
+    help="Initial backoff (seconds) for half-open health probes of a "
+         "circuit-opened replica; doubles per failed probe with full "
+         "jitter (retry.py policy) up to HVD_TPU_FLEET_PROBE_MAX_"
+         "BACKOFF.")
+FLEET_PROBE_MAX_BACKOFF = _register(
+    "FLEET_PROBE_MAX_BACKOFF", 2.0, float,
+    help="Cap (seconds) on the half-open probe backoff for circuit-"
+         "opened replicas — the longest a recovered replica waits "
+         "before a probe can re-admit it.")
+FLEET_DRAIN_DEADLINE_SECONDS = _register(
+    "FLEET_DRAIN_DEADLINE_SECONDS", 30.0, float,
+    help="Rolling-reload drain deadline: the longest the rollout waits "
+         "for one replica's in-flight requests to reach zero before "
+         "aborting the rollout and re-admitting the replica un-swapped "
+         "(fail-static: a wedged drain never takes capacity down).")
+FLEET_REPLICA_CONCURRENCY = _register(
+    "FLEET_REPLICA_CONCURRENCY", 8, int,
+    help="Per-replica concurrent-request budget the router's admission "
+         "uses to size fleet capacity (routable replicas x this). "
+         "Requests beyond fleet capacity wait in the fair queue instead "
+         "of piling onto replica queues.")
+FLEET_TENANTS = _register(
+    "FLEET_TENANTS", "", str,
+    help="JSON object mapping tenant name -> {keys: [api keys], "
+         "max_concurrent, max_queued, weight, priority} for the "
+         "router's per-tenant admission. Omitted fields fall back to "
+         "the HVD_TPU_FLEET_TENANT_CONCURRENT / _QUEUE_DEPTH / _WEIGHT "
+         "defaults; unknown API keys and "
+         "missing headers resolve to the built-in 'default' tenant. "
+         "Empty (default) = every request is the default tenant.")
+FLEET_TENANT_CONCURRENT = _register(
+    "FLEET_TENANT_CONCURRENT", 4, int,
+    help="Default per-tenant cap on concurrently dispatched requests "
+         "(tenants can override via HVD_TPU_FLEET_TENANTS). A tenant "
+         "at its cap queues; over its queue cap it gets its own 429s "
+         "while other tenants keep being served.")
+FLEET_TENANT_QUEUE_DEPTH = _register(
+    "FLEET_TENANT_QUEUE_DEPTH", 16, int,
+    help="Default per-tenant cap on requests waiting in the router's "
+         "fair queue. Arrivals beyond it are rejected 429 reason="
+         "quota immediately — the flooding tenant's own backpressure, "
+         "not the fleet's.")
+FLEET_TENANT_WEIGHT = _register(
+    "FLEET_TENANT_WEIGHT", 1.0, float,
+    help="Default weighted-fair-queue share per tenant (stride "
+         "scheduling: a weight-2 tenant dequeues twice as often as a "
+         "weight-1 tenant under contention, within a priority class). "
+         "Priority classes strictly outrank weights.")
+FLEET_DEFAULT_DEADLINE_MS = _register(
+    "FLEET_DEFAULT_DEADLINE_MS", 0.0, float,
+    help="End-to-end latency budget (ms) the fleet router mints for "
+         "requests that arrive without an X-HVD-TPU-Deadline-Ms header. "
+         "The budget is decremented at every hop (route -> fair-queue "
+         "wait -> prefill admission -> per-token decode) and an "
+         "un-meetable request is shed with HTTP 429 plus an "
+         "X-HVD-TPU-Deadline-Exceeded header naming the stage that "
+         "noticed. 0 (default) falls back to HVD_TPU_SERVING_DEADLINE_"
+         "MS for the router's queue wait (legacy behavior).")
+FLEET_HEDGE_QUANTILE = _register(
+    "FLEET_HEDGE_QUANTILE", 0.0, float,
+    help="Latency quantile (0..1) of the router's observed non-"
+         "streaming proxy latency after which a still-pending request "
+         "is hedged to a second replica: first response wins, the "
+         "loser is cancelled via POST /v1/cancel. Hedges spend from "
+         "the per-tenant retry budget (HVD_TPU_FLEET_RETRY_BUDGET_"
+         "RATIO). 0 (default) disables hedging; the trigger arms only "
+         "once enough latency samples exist to estimate the quantile.")
+FLEET_RETRY_BUDGET_RATIO = _register(
+    "FLEET_RETRY_BUDGET_RATIO", 0.1, float,
+    help="Per-tenant token-bucket retry budget: every primary request "
+         "a tenant sends earns this many retry tokens (capped at "
+         "HVD_TPU_FLEET_RETRY_BUDGET_BURST) and every retry, hedge, or "
+         "mid-stream failover the router issues on the tenant's behalf "
+         "spends one. An exhausted budget degrades the router to "
+         "pass-through — failures are relayed instead of amplified "
+         "into a retry storm.")
+FLEET_RETRY_BUDGET_BURST = _register(
+    "FLEET_RETRY_BUDGET_BURST", 16, int,
+    help="Cap (and initial fill) of the per-tenant retry-budget token "
+         "bucket, in retries. Bounds how many retries/hedges/failovers "
+         "the router can issue for one tenant in a burst before the "
+         "HVD_TPU_FLEET_RETRY_BUDGET_RATIO accrual becomes the "
+         "limiting rate.")
+
 # -- Disaggregated prefill/decode serving (serving/disagg/: pool-split
 #    fleet with content-addressed KV-block shipping) ------------------------
 DISAGG_ROLE = _register(

@@ -32,7 +32,12 @@ Its generation half:
   (``/v1/kv/offer``, ``/v1/kv/fetch``), for prefill and decode
   replicas.
 
-The fleet router (tenancy, rollout) is not ported yet.
+And the tier above the replicas:
+
+* :mod:`.fleet`: :class:`~.fleet.FleetRouter`, health-aware balancing
+  over N replica servers with per-tenant admission, hedging, mid-stream
+  failover and the pooled prefill/decode hop, and
+  :func:`~.fleet.rolling_reload`.
 """
 
 from .batcher import (BucketedForward, DeadlineExceededError,  # noqa: F401
@@ -42,3 +47,4 @@ from .engine import (InferenceEngine, ParamsLifecycle,  # noqa: F401
                      ReloadCrashed, wait_for_step)
 from .generation import GenerationEngine                          # noqa: F401
 from .server import InferenceServer                               # noqa: F401
+from . import fleet                                               # noqa: F401

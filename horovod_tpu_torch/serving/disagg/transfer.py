@@ -27,6 +27,7 @@ from ... import config as _config
 from ... import faults as _faults
 from ... import metrics as _metrics
 from ... import tracing as _tracing
+from ..fleet.router import REQUEST_ID_HEADER
 from .wire import unpack_blocks
 
 log = logging.getLogger("horovod_tpu_torch.disagg")
@@ -61,7 +62,6 @@ def fetch_blocks(source: str, hashes: Sequence[str],
     ``(served_hashes, k, v, wire_bytes)``. The prefill side may
     serve a shorter prefix than asked (blocks evicted since the offer
     was computed) — the importer tolerates that."""
-    from ..server import REQUEST_ID_HEADER   # the server imports this
     headers = {"Content-Type": "application/json"}
     if request_id:
         headers[REQUEST_ID_HEADER] = str(request_id)

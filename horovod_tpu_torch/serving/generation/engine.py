@@ -27,9 +27,14 @@ by state_dict name), or a module with the same paged ``forward(tokens,
 cache=PagedCache, logits_at=...)`` and a ``cfg`` with
 ``num_layers/num_heads/head_dim/max_seq_len/vocab_size/dtype``. The
 engine runs on the card unless ``device="cpu"`` is passed, and raises
-without one.
+without one. ``functional_call`` swaps the params into the module's
+attributes for the length of a call, so the engine keeps a copy of the
+module (and of a draft model) of its own: two engines that run at once
+in one process, as two replicas of a fleet do, never share one. The copy
+of a module on meta holds no memory.
 """
 
+import copy
 from typing import Any, List, Optional, Sequence
 
 from ... import config as _config
@@ -117,6 +122,8 @@ class GenerationEngine:
                           if spec_tokens is None else spec_tokens)
         max_beams = int(cfg.get(_config.GEN_BEAMS)
                         if max_beams is None else max_beams)
+        model = copy.deepcopy(model)
+        draft_model = copy.deepcopy(draft_model)
         self.model = model
         self._lifecycle = ParamsLifecycle(
             checkpoint_dir=checkpoint_dir, params=params, sharding=sharding,

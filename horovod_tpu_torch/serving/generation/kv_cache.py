@@ -634,7 +634,9 @@ def build_prefill_program(model):
     One chunk of prompt K/V lands in the cache and the *final* live
     position's next token is sampled on device — the host never sees
     chunk logits, so intermediate chunks don't even synchronize.
-    ``tokens`` is ``(1, prefill_chunk)``.
+    ``tokens`` is ``(1, prefill_chunk)``, or ``(max_seqs, decode
+    width)`` for a resumed sequence's generated tail (the scheduler lays
+    it out at the decode step's shapes, one sequence across the lanes).
     """
 
     @torch.no_grad()

@@ -361,7 +361,7 @@ class GenSequence:
                  "done_event", "arrived_at", "temperature", "top_k",
                  "top_p", "seed", "key", "sample_offset", "prefix_hashes",
                  "block_hashes", "cache_gen", "request_id", "trace",
-                 "num_beams")
+                 "num_beams", "tail_from")
 
     def __init__(self, seq_id: int, prompt: List[int], max_tokens: int,
                  eos_id: Optional[int], deadline_s: float,
@@ -411,6 +411,11 @@ class GenSequence:
         #: (the prompt; after a preemption, prompt + regenerated history)
         self.prefill_tokens: List[int] = list(prompt)
         self.prefilled = 0
+        #: prefill_tokens[tail_from:] are a failover resume's emitted
+        #: tokens (the last ``sample_offset`` of the prompt): the dead
+        #: replica computed their K/V in decode steps, so the prefill
+        #: recomputes them at the decode step's shapes (_prefill_step)
+        self.tail_from = max(0, len(self.prompt) - self.sample_offset)
         #: tokens actually written to the cache so far
         self.cache_len = 0
         #: the next decode step's input token (the newest generated one)
@@ -728,6 +733,7 @@ class ContinuousBatcher:
             # into the top-W continuations (prefilling it would commit
             # a single greedy path one step early)
             seq.prefill_tokens = seq.prompt[:-1]
+        seq.tail_from = min(seq.tail_from, len(seq.prefill_tokens))
         if self._prefix_cache:
             # hashed on the submitter's thread (pure computation on a
             # sequence the scheduler can't see yet) so the hot loop
@@ -1158,22 +1164,47 @@ class ContinuousBatcher:
         if s.state != "prefill":
             return                # a device failure during the drain
         total = len(s.prefill_tokens)
-        chunk = s.prefill_tokens[s.prefilled:s.prefilled + self.prefill_chunk]
+        # a resume's emitted tail runs at the decode step's shapes: up to
+        # max_seqs x DECODE_WIDTH tokens a call, token i in lane
+        # i // DECODE_WIDTH, column i % DECODE_WIDTH, every lane reading
+        # the sequence's one block table. A GEMM rounds each row the same
+        # at the same row count, and each row attends to its own
+        # positions, so every tail token's K/V and the last one's logits
+        # are the decode step's (the card rounds some row counts
+        # differently: a 64-row chunk would not be). No chunk straddles
+        # the tail's start, so the prompt's chunks keep their shapes.
+        tail = s.prefilled >= s.tail_from
+        lanes, width = (self.max_seqs, DECODE_WIDTH) if tail \
+            else (1, self.prefill_chunk)
+        end = min(total, s.prefilled + lanes * width)
+        if not tail:
+            end = min(end, s.tail_from)
+        chunk = s.prefill_tokens[s.prefilled:end]
         live = len(chunk)
         need = self._alloc.blocks_for(s.prefilled + live) - len(s.blocks)
         if need > 0 and not self._grow(s, need):
             return          # s itself was preempted; nothing to run
-        tokens = np.zeros((1, self.prefill_chunk), np.int32)
-        tokens[0, :live] = chunk
+        tokens = np.zeros((lanes * width,), np.int32)
+        tokens[:live] = chunk
+        tokens = tokens.reshape(lanes, width)
+        # the lane whose last live position is sampled
+        last = (live - 1) // width
         # the resume path discards the sampled token (it was emitted
         # before the eviction): force the cheap greedy branch
         temp = 0.0 if s.resume_decode else s.temperature
+
+        def at_last(value, dtype, rest):
+            arr = np.full((lanes,), rest, dtype)
+            arr[last] = value
+            return self._dev(arr)
+        key = np.zeros((lanes,) + s.key.shape, s.key.dtype)
+        key[last] = s.key
         sample = SampleParams(
-            temperature=self._dev(np.asarray([temp], np.float32)),
-            top_k=self._dev(np.asarray([s.top_k], np.int32)),
-            top_p=self._dev(np.asarray([s.top_p], np.float32)),
-            key=self._dev(s.key[None, :]),
-            emitted=self._dev(np.asarray([s.sample_offset], np.int32)),
+            temperature=at_last(temp, np.float32, 0.0),
+            top_k=at_last(s.top_k, np.int32, 0),
+            top_p=at_last(s.top_p, np.float32, 1.0),
+            key=self._dev(key),
+            emitted=at_last(s.sample_offset, np.int32, 0),
             sampled=temp > 0.0)
         if s.request_id:
             _tracing.note_request(s.request_id)
@@ -1249,11 +1280,19 @@ class ContinuousBatcher:
         return torch.from_numpy(arr).to(self._device)
 
     def _run_prefill(self, s: GenSequence, tokens, live: int, sample):
-        row = np.zeros((1, self.max_blocks), np.int32)
-        row[0, :len(s.blocks)] = s.blocks
-        cache = PagedCache(self._k, self._v, self._dev(row),
-                           self._dev(np.asarray([s.prefilled], np.int32)),
-                           self._dev(np.asarray([live], np.int32)))
+        """One chunk: ``tokens`` (lanes, width) holds ``live`` tokens of
+        ``s`` row-major from its cache position, each lane reading its
+        block table (one lane, except for a resume's tail)."""
+        lanes, width = tokens.shape
+        lives = np.clip(live - width * np.arange(lanes), 0, width) \
+            .astype(np.int32)
+        rows = np.zeros((lanes, self.max_blocks), np.int32)
+        rows[lives > 0, :len(s.blocks)] = s.blocks
+        lengths = np.where(lives > 0, s.prefilled + width * np.arange(
+            lanes), 0).astype(np.int32)
+        cache = PagedCache(self._k, self._v, self._dev(rows),
+                           self._dev(lengths), self._dev(lives))
+        last = (live - 1) // width
         try:
             tok, logp, cache = self._prefill_prog(
                 self._params(), cache, self._dev(tokens), sample)
@@ -1265,7 +1304,7 @@ class ContinuousBatcher:
             self._reset_device()
             raise
         self._k, self._v = cache.k, cache.v
-        return tok, logp
+        return tok[last:last + 1], logp[last:last + 1]
 
     # -- decode --------------------------------------------------------------
 
@@ -1868,6 +1907,10 @@ class ContinuousBatcher:
             # generated token — it is the resumed decode's input
             s.prefill_tokens = s.prompt + s.generated[:-1]
             s.resume_decode = True
+            # the recompute runs in prompt-shaped chunks, a resume's
+            # emitted tail included: only a failover's resubmission
+            # takes the decode-shaped tail path
+            s.tail_from = len(s.prefill_tokens)
             if self._prefix_cache:
                 # re-match on readmission: the full blocks just freed
                 # parked in the cached pool, so unless pressure evicts

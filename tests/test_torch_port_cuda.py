@@ -347,3 +347,56 @@ def test_greedy_generation_on_the_card_equals_the_raw_program(cuda):
         logits, _ = raw(params, cache, buf)
         want.append(int(logits[0, 0].argmax()))
     assert got == want
+
+
+def test_router_over_a_card_replica_answers_as_a_direct_forward(cuda):
+    """The fleet router in front of one InferenceServer replica on the
+    card (a 2-layer transformer through the flash kernel, one-row
+    requests): each routed answer equals the replica's direct forward of
+    the same row, bit for bit, and carries the request id it was sent."""
+    import dataclasses
+    import json
+    from urllib.request import Request, urlopen
+    import numpy as np
+    from horovod_tpu_torch import serving
+    from horovod_tpu_torch.models.transformer import (Transformer,
+                                                      TransformerConfig)
+    from horovod_tpu_torch.parallel import flash_attention_fn
+    from horovod_tpu_torch.serving import fleet
+    cfg = TransformerConfig(vocab_size=128, num_layers=2, max_seq_len=256,
+                            attention_fn=flash_attention_fn)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = {n: p.detach() for n, p in Transformer(
+        dataclasses.replace(cfg, attention_fn=None), device=cuda,
+        generator=gen).named_parameters()}
+    model = Transformer(cfg, device="meta")
+
+    def apply(p, x):
+        logits = torch.func.functional_call(model, p, (x.long(),))
+        return torch.log_softmax(logits[:, -1], dim=-1).max(dim=-1).values
+    eng = serving.InferenceEngine(apply, params=params, max_batch=1,
+                                  buckets=(1,), deadline_ms=0,
+                                  reload_poll_seconds=0, warmup=False)
+    srv = serving.InferenceServer(eng, port=0, addr="127.0.0.1")
+    srv.start()
+    router = fleet.FleetRouter({"r0": f"http://127.0.0.1:{srv.port}"},
+                               port=0, addr="127.0.0.1")
+    router.start()
+    rows = np.random.RandomState(0).randint(0, cfg.vocab_size, (4, 256))
+    try:
+        for i, row in enumerate(rows):
+            req = Request(router.url + "/v1/infer",
+                          data=json.dumps({"inputs": [row.tolist()]})
+                          .encode(), method="POST",
+                          headers={"Content-Type": "application/json",
+                                   fleet.REQUEST_ID_HEADER: f"card-{i}"})
+            with urlopen(req, timeout=120) as resp:
+                doc = json.loads(resp.read())
+                assert resp.headers[fleet.REQUEST_ID_HEADER] == f"card-{i}"
+            with torch.inference_mode():
+                want = apply(params, torch.tensor(
+                    row[None], dtype=torch.float32, device=cuda))
+            assert doc["outputs"][0] == float(want[0])
+    finally:
+        router.stop()
+        srv.close()

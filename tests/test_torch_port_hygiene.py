@@ -460,3 +460,56 @@ def test_scheduler_step_has_no_cpu_retry():
         p = os.path.join(PKG, *rel)
         t = ast.parse(open(p).read(), p)
         assert not [n for n in ast.walk(t) if isinstance(n, ast.Try)], rel
+
+
+def test_fleet_and_microbench_import_with_jax_blocked():
+    """The serving fleet (router, tenancy, rollout) and the microbench
+    import with jax and the JAX package blocked and load none of them;
+    the fleet exports the JAX package's names."""
+    code = (
+        "import sys\n"
+        f"for m in {sorted(FORBIDDEN)!r}:\n"
+        "    sys.modules[m] = None\n"
+        "import horovod_tpu_torch.serving.fleet as fleet\n"
+        "import horovod_tpu_torch.microbench as mb\n"
+        "from horovod_tpu_torch import serving\n"
+        "from horovod_tpu_torch.serving.disagg import transfer\n"
+        "from horovod_tpu_torch.serving import server\n"
+        "names = ('FleetRouter', 'ReplicaHeartbeat', 'REQUEST_ID_HEADER',\n"
+        "         'FairScheduler', 'Tenant', 'TenantQuotaError',\n"
+        "         'TenantRegistry', 'API_KEY_HEADER', 'TENANT_HEADER',\n"
+        "         'RolloutAborted', 'rolling_reload')\n"
+        "assert all(hasattr(fleet, n) for n in names)\n"
+        "assert serving.fleet is fleet and mb.SECTIONS\n"
+        "assert transfer.REQUEST_ID_HEADER is fleet.REQUEST_ID_HEADER\n"
+        "assert server.REQUEST_ID_HEADER == fleet.REQUEST_ID_HEADER\n"
+        "assert fleet.REQUEST_ID_HEADER == 'X-HVD-TPU-Request-Id'\n"
+        "bad = [m for m, mod in sys.modules.items() if mod is not None\n"
+        "       and m.split('.')[0] in ('horovod_tpu', 'jax', 'flax',\n"
+        "                               'optax')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+def test_microbench_command_defaults_to_cuda_and_raises_without():
+    """``python -m horovod_tpu_torch.microbench`` runs on the card unless
+    ``--device cpu`` is given: without a card it raises and prints no
+    section line, and its sections' device defaults raise too."""
+    from horovod_tpu_torch import microbench
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-m", "horovod_tpu_torch.microbench",
+                        "--sections", "tracing"], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0 and "CUDA" in r.stderr
+    assert '"section"' not in r.stdout
+    with pytest.raises(RuntimeError, match="CUDA"):
+        microbench.resume_sweep(emitted=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        microbench.sdc_guard_sweep(steps=1, rounds=1)
