@@ -237,6 +237,33 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
    ranks on one card) are left out here: they do no work on the card.
    eager_2proc's line says so; the CPU tests and the module's own driver
    run them. Prints the phase's seconds.
+19. frontends (runs before microbench, in a world of its own): first a
+   line naming which of tensorflow, keras, pandas and pyarrow this
+   machine has (their installed versions, or null). (a) Always: ``import
+   horovod_tpu_torch.torch as hvd``'s recipe (hvd.init(),
+   hvd.DistributedOptimizer(AdamW, named_parameters=...),
+   hvd.broadcast_parameters, hvd.broadcast_optimizer_state) on the
+   default TransformerConfig through the flash kernel, NCCL at size 1, 3
+   steps on the train phase's seeds: its losses equal the train phase's
+   first 3 bit for bit (the same code under another module path), 36
+   flash launches. (b) With pandas and pyarrow: the Spark TorchEstimator
+   without pyspark, on the card by default: a pandas frame of 16 rows of
+   2048 token ids and 2048 targets (numpy seed 0) written through a
+   LocalStore in a temporary directory, the same full-width transformer
+   (TokenModel casts the estimator's float32 features back to ids,
+   TokenLoss is the cross-entropy), batch 8, one epoch (2 steps), no
+   shuffle, AdamW; its loss history and parameters equal a hand loop of
+   the same two batches through DistributedOptimizer(AdamW) bit for bit,
+   and TorchModel.transform of 8 rows equals a direct forward of the
+   fitted model; prints the fit's seconds, its step interval, the hand
+   loop's step ms and the flash launches (24 in the fit, 12 in the
+   transform). (c) With tensorflow and keras: DistributedGradientTape
+   (3 steps) and model.fit (2 epochs, the port's DistributedOptimizer,
+   BroadcastGlobalVariablesCallback and MetricAverageCallback) of a
+   small Keras model at one process, whose weights must equal the same
+   steps in plain TF; prints TF's device and the torch device its tensors
+   reached through DLPack. A part whose packages are absent says so on
+   its line and does not run.
 
 Then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a
@@ -251,6 +278,8 @@ import re
 import subprocess
 import sys
 import time
+
+import torch
 
 # tolerances, kernel against plain version (at the kernel's key tile) on
 # the same inputs. fp32 outputs differ only by the order of fp32 sums (and
@@ -1649,15 +1678,15 @@ AUTOTUNE_SETTINGS = {"AUTOTUNE": True, "AUTOTUNE_WARMUP_SAMPLES": 1,
                      "AUTOTUNE_BAYES_OPT_MAX_SAMPLES": 2}
 
 
-def _estimator_model(torch, cfg):
+def _estimator_model(torch, cfg, device="cuda"):
     """The default config at full width with the flash kernel, weights
     from seed 0 (the same on every call)."""
     import dataclasses
     from horovod_tpu_torch.models import Transformer
     from horovod_tpu_torch.parallel import flash_attention_fn
     return Transformer(dataclasses.replace(cfg, attention_fn=flash_attention_fn),
-                       device="cuda",
-                       generator=torch.Generator(device="cuda").manual_seed(0))
+                       device=device,
+                       generator=torch.Generator(device=device).manual_seed(0))
 
 
 def _fit(torch, fa, est, x, y, **kw):
@@ -3517,6 +3546,317 @@ def fleet_generation(torch, fa, cfg, bundle):
     return checks
 
 
+# -- 19. frontends: the framework frontends on the card ------------------------
+
+FRONTEND_STEPS = 3           # the torch recipe's steps (the train phase's)
+SPARK_ROWS = 16              # the Spark frame: 2 steps at batch 8
+SPARK_TRANSFORM_ROWS = 8
+KERAS_STEPS = 3              # the TF tape's steps; model.fit runs 2 epochs
+OPTIONAL_PACKAGES = ("tensorflow", "keras", "pandas", "pyarrow")
+
+
+class TokenModel(torch.nn.Module):
+    """The Spark phase's model: the estimator feeds float32 features, so
+    the token ids are cast back to integers before the transformer."""
+
+    def __init__(self, transformer):
+        super().__init__()
+        self.transformer = transformer
+
+    def forward(self, x):
+        return self.transformer(x.long())
+
+
+class TokenLoss(torch.nn.Module):
+    """Cross-entropy of (B, S, vocab) logits against (B, S) targets given
+    as float32; stamps the host clock once each loss is computed (the
+    step boundaries of a fit, which reports no times of its own)."""
+
+    def __init__(self):
+        super().__init__()
+        self.stamps = []
+
+    def forward(self, logits, targets):
+        loss = torch.nn.functional.cross_entropy(
+            logits.reshape(-1, logits.shape[-1]), targets.reshape(-1).long())
+        if loss.is_cuda:
+            torch.cuda.synchronize()
+        self.stamps.append(time.perf_counter())
+        return loss
+
+
+def _package_versions() -> dict:
+    """Which of the frontends' optional packages this machine has, by
+    their installed metadata (nothing is imported)."""
+    from importlib import metadata
+    found = {}
+    for name in OPTIONAL_PACKAGES:
+        try:
+            found[name] = metadata.version(name)
+        except metadata.PackageNotFoundError:
+            found[name] = None
+    return found
+
+
+def _frontend_launches(device, forwards: int, num_layers: int) -> int:
+    """The flash launches ``forwards`` full forwards make: one a layer on
+    the card; on the CPU the wrapper runs the plain version instead."""
+    return forwards * num_layers if device.type == "cuda" else 0
+
+
+def frontends_torch_recipe(torch, fa, cfg, train_losses, device):
+    """(a) ``import horovod_tpu_torch.torch as hvd``'s five-line recipe at
+    the train phase's width, seeds and AdamW, 3 steps. Returns the flash
+    launches."""
+    import dataclasses
+    import horovod_tpu_torch.torch as hvd
+    from horovod_tpu_torch.models import Transformer
+    from horovod_tpu_torch.parallel import flash_attention_fn
+    from horovod_tpu_torch.parallel.train import default_optimizer
+    hvd.init(device=device)
+    model = Transformer(dataclasses.replace(cfg,
+                                            attention_fn=flash_attention_fn),
+                        device=device,
+                        generator=torch.Generator(device=device)
+                        .manual_seed(0))
+    optimizer = hvd.DistributedOptimizer(
+        default_optimizer(model.parameters()),
+        named_parameters=model.named_parameters())
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    hvd.broadcast_optimizer_state(optimizer, root_rank=0)
+    data = torch.randint(0, cfg.vocab_size, (BATCH, cfg.max_seq_len + 1),
+                         generator=torch.Generator(device=device)
+                         .manual_seed(1), device=device)
+    tokens, targets = data[:, :-1], data[:, 1:]
+    losses, seconds = [], []
+    fa.LAUNCHES["flash_fwd"] = 0
+    for _ in range(FRONTEND_STEPS):
+        t0 = time.perf_counter()
+        optimizer.zero_grad(set_to_none=True)
+        loss = torch.nn.functional.cross_entropy(
+            model(tokens).reshape(-1, cfg.vocab_size), targets.reshape(-1))
+        loss.backward()
+        optimizer.step()
+        losses.append(loss.item())
+        seconds.append(time.perf_counter() - t0)
+    launches = fa.LAUNCHES["flash_fwd"]
+    from horovod_tpu_torch import basics
+    world = basics.world()
+    line = {"phase": "frontends_torch",
+            "module": hvd.__name__, "steps": FRONTEND_STEPS,
+            "losses": losses, "train_phase_losses": train_losses[:3],
+            "step_ms": [1e3 * s for s in seconds],
+            "flash_launches": launches, "backend": world.backend,
+            "size": hvd.size(), "device": str(world.device)}
+    line["ok"] = (losses == train_losses[:FRONTEND_STEPS] and launches
+                  == _frontend_launches(device, FRONTEND_STEPS,
+                                        cfg.num_layers))
+    emit(line)
+    optimizer.remove_hooks()
+    if not line["ok"]:
+        raise AssertionError(f"torch frontend recipe failed: {line}")
+    return launches
+
+
+def frontends_spark(torch, np, fa, cfg, device):
+    """(b) The Spark TorchEstimator without pyspark, on a pandas frame,
+    against a hand loop; then TorchModel.transform against a direct
+    forward. Returns the flash launches of the fit."""
+    import tempfile
+    import pandas as pd
+    from horovod_tpu_torch import DistributedOptimizer
+    from horovod_tpu_torch.parallel.train import default_optimizer
+    from horovod_tpu_torch.spark.store import LocalStore
+    from horovod_tpu_torch.spark.torch import TorchEstimator
+    rng = np.random.RandomState(0)
+    seqs = rng.randint(0, cfg.vocab_size, (SPARK_ROWS, cfg.max_seq_len + 1))
+    frame = pd.DataFrame({"tokens": list(seqs[:, :-1]),
+                          "targets": list(seqs[:, 1:])})
+    loss_fn = TokenLoss()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as root:
+        est = TorchEstimator(
+            model=TokenModel(_estimator_model(torch, cfg, device)),
+            optimizer=default_optimizer, loss=loss_fn,
+            feature_cols=["tokens"], label_cols=["targets"],
+            batch_size=BATCH, epochs=1, shuffle=False,
+            store=LocalStore(root), device=device)
+        fa.LAUNCHES["flash_fwd"] = 0
+        t0 = time.perf_counter()
+        fitted = est.fit(frame)
+        fit_s = time.perf_counter() - t0
+        launches = fa.LAUNCHES["flash_fwd"]
+    est_step_ms = [1e3 * (b - a) for a, b in zip(loss_fn.stamps,
+                                                 loss_fn.stamps[1:])]
+    del est
+
+    # the hand loop: the same batches, the same module and AdamW, through
+    # the core's DistributedOptimizer (at one process its average is the
+    # identity, so it must equal the estimator's unwrapped optimizer)
+    model = TokenModel(_estimator_model(torch, cfg, device))
+    opt = DistributedOptimizer(default_optimizer(model.parameters()),
+                               named_parameters=model.named_parameters())
+    x = torch.tensor(seqs[:, :-1].astype(np.float32), device=device)
+    y = torch.tensor(seqs[:, 1:].astype(np.float32), device=device)
+    hand_loss, hand, hand_ms = TokenLoss(), [], []
+    for s in range(0, SPARK_ROWS, BATCH):
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        loss = hand_loss(model(x[s:s + BATCH]), y[s:s + BATCH])
+        loss.backward()
+        opt.step()
+        hand.append(float(loss.detach()))
+        hand_ms.append(1e3 * (time.perf_counter() - t0))
+    epoch = 0.0
+    for v in hand:
+        epoch += v * BATCH
+    hand_history = [epoch / SPARK_ROWS]
+    fitted_state = fitted.getModel().state_dict()
+    params_equal = all(torch.equal(v, fitted_state[k])
+                       for k, v in model.state_dict().items())
+    opt.remove_hooks()
+    del model, opt
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    rows = frame.head(SPARK_TRANSFORM_ROWS)
+    fa.LAUNCHES["flash_fwd"] = 0
+    t0 = time.perf_counter()
+    out = fitted.transform(rows)
+    transform_s = time.perf_counter() - t0
+    transform_launches = fa.LAUNCHES["flash_fwd"]
+    preds = np.stack(out[fitted.output_cols[0]].to_numpy())
+    with torch.no_grad():
+        ref = fitted.getModel()(torch.tensor(
+            seqs[:SPARK_TRANSFORM_ROWS, :-1].astype(np.float32),
+            device=device)).cpu().numpy()
+    line = {"phase": "frontends_spark", "estimator": "TorchEstimator",
+            "rows": SPARK_ROWS, "batch": BATCH, "steps": len(hand),
+            "seq": cfg.max_seq_len, "device": str(fitted.device),
+            "loss_history": fitted.loss_history,
+            "hand_loop_history": hand_history, "hand_loop_losses": hand,
+            "params_equal_hand_loop": params_equal,
+            "fit_seconds": fit_s, "fit_step_ms": est_step_ms,
+            "hand_loop_step_ms": hand_ms,
+            "transform_rows": SPARK_TRANSFORM_ROWS,
+            "transform_seconds": transform_s,
+            "transform_shape": list(preds.shape),
+            "transform_equals_forward": bool(np.array_equal(preds, ref)),
+            "flash_launches_fit": launches,
+            "flash_launches_transform": transform_launches}
+    line["ok"] = (fitted.loss_history == hand_history and params_equal
+                  and line["transform_equals_forward"]
+                  and all(math.isfinite(v) for v in hand)
+                  and launches == _frontend_launches(device, len(hand),
+                                                     cfg.num_layers)
+                  and transform_launches == _frontend_launches(
+                      device, 1, cfg.num_layers))
+    emit(line)
+    del fitted, preds, ref, out
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    if not line["ok"]:
+        raise AssertionError("the Spark TorchEstimator disagrees with its "
+                             "hand loop or its forward")
+    return launches
+
+
+def frontends_tf(torch, np):
+    """(c) DistributedGradientTape and model.fit of a small Keras model
+    through the port's TensorFlow and Keras frontends at one process,
+    against the same steps in plain TF (Average over one process is the
+    identity, so the weights are equal)."""
+    import keras
+    import tensorflow as tf
+    import horovod_tpu_torch as hvd
+    import horovod_tpu_torch.keras as hvd_k
+    import horovod_tpu_torch.tensorflow as hvd_tf
+    rng = np.random.RandomState(0)
+    x = rng.randn(64, 16).astype(np.float32)
+    y = rng.randn(64, 4).astype(np.float32)
+
+    def build():
+        keras.utils.set_random_seed(0)
+        return keras.Sequential([keras.Input(shape=(16,)),
+                                 keras.layers.Dense(32, activation="relu"),
+                                 keras.layers.Dense(4)])
+    dist, plain = build(), build()
+    opts = {id(dist): keras.optimizers.SGD(0.05),
+            id(plain): keras.optimizers.SGD(0.05)}
+    for _ in range(KERAS_STEPS):
+        for model in (dist, plain):
+            with tf.GradientTape() as tape:
+                loss = tf.reduce_mean(tf.square(model(x) - y))
+            if model is dist:
+                tape = hvd_tf.DistributedGradientTape(tape)
+            grads = tape.gradient(loss, model.trainable_variables)
+            opts[id(model)].apply_gradients(
+                zip(grads, model.trainable_variables))
+    tape_equal = all(np.array_equal(a, b) for a, b in
+                     zip(dist.get_weights(), plain.get_weights()))
+    fits = {}
+    for kind in ("port", "plain"):
+        model = build()
+        opt = keras.optimizers.SGD(0.05)
+        callbacks = []
+        if kind == "port":
+            opt = hvd_k.DistributedOptimizer(opt)
+            callbacks = [hvd_k.callbacks.BroadcastGlobalVariablesCallback(0),
+                         hvd_k.callbacks.MetricAverageCallback()]
+        model.compile(optimizer=opt, loss="mse")
+        hist = model.fit(x, y, batch_size=16, epochs=2, shuffle=False,
+                         verbose=0, callbacks=callbacks)
+        fits[kind] = (model.get_weights(), hist.history["loss"])
+    fit_equal = fits["port"][1] == fits["plain"][1] and all(
+        np.array_equal(a, b) for a, b in zip(fits["port"][0],
+                                             fits["plain"][0]))
+    t = tf.constant(x)
+    staged = hvd_tf._to_torch(t)
+    out = hvd_tf.allreduce(t, op=hvd_tf.Sum, name="frontends.tf.where")
+    line = {"phase": "frontends_tf", "tensorflow": tf.__version__,
+            "keras": keras.__version__, "tf_device": t.device,
+            "torch_device_via_dlpack": str(staged.device),
+            "shares_tf_buffer": staged.data_ptr() == torch.from_dlpack(
+                t).data_ptr(),
+            "world_device": str(hvd.basics.device()),
+            "result_tf_device": out.device,
+            "tape_steps": KERAS_STEPS, "tape_equals_plain_tf": tape_equal,
+            "fit_epochs": 2, "fit_equals_plain_tf": fit_equal,
+            "fit_losses": fits["port"][1]}
+    line["ok"] = tape_equal and fit_equal and np.array_equal(out.numpy(), x)
+    emit(line)
+    if not line["ok"]:
+        raise AssertionError("the TF or Keras frontend disagrees with "
+                             "plain TF")
+
+
+def frontends_phase(torch, fa, cfg, train_losses, device=None):
+    """The framework frontends (module docstring, phase 19). Returns the
+    flash launches of each of its paths."""
+    import numpy as np
+    import horovod_tpu_torch as hvd
+    device = torch.device(device or "cuda")
+    t0 = time.perf_counter()
+    found = _package_versions()
+    emit({"phase": "frontends_env", **found})
+    launches = {"frontends_torch": frontends_torch_recipe(
+        torch, fa, cfg, train_losses, device)}
+    if found["pandas"] and found["pyarrow"]:
+        launches["frontends_spark"] = frontends_spark(torch, np, fa, cfg,
+                                                      device)
+    else:
+        emit({"phase": "frontends_spark", "ran": False,
+              "absent": [p for p in ("pandas", "pyarrow") if not found[p]]})
+    if found["tensorflow"] and found["keras"]:
+        frontends_tf(torch, np)
+    else:
+        emit({"phase": "frontends_tf", "ran": False,
+              "absent": [p for p in ("tensorflow", "keras")
+                         if not found[p]]})
+    hvd.shutdown()
+    emit({"phase": "frontends_seconds", "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def microbench_phase(torch):
     """The port's microbenchmarks, --quick, on the card (module
     docstring, phase 18): one line per section; each section's own
@@ -3616,6 +3956,7 @@ def main() -> int:
     estimator_launches, _ = estimator_phase(torch, fa, cfg, train_ms)
     reduction_launches = reductions_phase(torch, fa, cfg, losses)
     telemetry_launches = telemetry_phase(torch, fa, cfg, losses, train_ms)
+    frontend_launches = frontends_phase(torch, fa, cfg, losses)
     microbench_phase(torch)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -3632,7 +3973,8 @@ def main() -> int:
                                             **generation_launches,
                                             **fleet_launches,
                                             "telemetry":
-                                                telemetry_launches},
+                                                telemetry_launches,
+                                            **frontend_launches},
                        "tensor_parallel_bh24": {
                            key: tp_row[key] for key in (
                                "ms", "plain_ms", "bound_ms", "bound_by",

@@ -829,18 +829,27 @@ class _AllgatherFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        ps = ctx.process_set
-        reduced = allreduce(grad, op=Sum, process_set=ps)
-        if reduced.dim() == 0:
-            return reduced, None, None
-        dims = allgather(torch.tensor([ctx.dim0], dtype=torch.int64),
-                         process_set=ps)
-        me = _mesh(_world(), ps).my_index
-        offset = int(dims[:me].sum())
-        piece = reduced[offset:offset + ctx.dim0]
-        if ctx.was_scalar:
-            piece = piece.reshape(())
-        return piece, None, None
+        return (allgather_grad(grad, ctx.dim0, ctx.was_scalar,
+                               ctx.process_set), None, None)
+
+
+def allgather_grad(grad: torch.Tensor, dim0: int, was_scalar: bool = False,
+                   process_set=None) -> torch.Tensor:
+    """The gradient of an allgather of ``dim0`` rows (a 0-d input when
+    ``was_scalar``): the sum-allreduce of the upstream ``grad``, narrowed
+    to this process's rows. Shared by the autograd Function and the
+    framework frontends' gradients."""
+    reduced = allreduce(grad, op=Sum, process_set=process_set)
+    if reduced.dim() == 0:
+        return reduced
+    dims = allgather(torch.tensor([dim0], dtype=torch.int64),
+                     process_set=process_set)
+    me = _mesh(_world(), process_set).my_index
+    offset = int(dims[:me].sum())
+    piece = reduced[offset:offset + dim0]
+    if was_scalar:
+        piece = piece.reshape(())
+    return piece
 
 
 def allgather(tensor, name: Optional[str] = None,
@@ -917,11 +926,18 @@ class _BroadcastFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        ps = ctx.process_set
-        reduced = allreduce(grad, op=Sum, process_set=ps)
-        if _mesh(_world(), ps).my_index != ctx.root_rank:
-            reduced = torch.zeros_like(reduced)
-        return reduced, None, None, None
+        return (broadcast_grad(grad, ctx.root_rank, ctx.process_set),
+                None, None, None)
+
+
+def broadcast_grad(grad: torch.Tensor, root_rank: int,
+                   process_set=None) -> torch.Tensor:
+    """The gradient of a broadcast from ``root_rank``: the sum-allreduce
+    of the upstream ``grad`` at the root, zero on every other process."""
+    reduced = allreduce(grad, op=Sum, process_set=process_set)
+    if _mesh(_world(), process_set).my_index != root_rank:
+        reduced = torch.zeros_like(reduced)
+    return reduced
 
 
 def broadcast(tensor, root_rank: int, name: Optional[str] = None,

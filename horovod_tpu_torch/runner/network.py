@@ -159,6 +159,12 @@ class BasicService:
     def shutdown(self):
         self._shutdown.set()
         try:
+            # close() alone does not wake an accept() blocked in another
+            # thread: the join would wait out its timeout
+            self._listener.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass   # never listened, or already shut
+        try:
             self._listener.close()
         except OSError:
             pass

@@ -25,8 +25,9 @@ Device side: :meth:`Timeline.start_torch_trace` captures a
 ``torch.profiler`` session (CPU ops and the CUDA kernels) whose exported
 Chrome trace is spliced into the timeline file at :meth:`Timeline.close`,
 device processes moved to ``pid + DEVICE_PID_OFFSET`` and every event
-shifted onto the timeline's clock through a ``record_function`` marker
-whose host time is known (the profiler's export has its own time base).
+shifted onto the timeline's clock through two ``record_function`` markers,
+one after the session starts and one before it stops, whose host times
+are bounded from below (the profiler's export has its own time base).
 
 Enable with ``HVD_TPU_TIMELINE=<file>`` (alias ``HOROVOD_TIMELINE``); only
 process 0 writes (reference: operations.cc:407-415).
@@ -37,7 +38,7 @@ import os
 import queue
 import threading
 import time
-from typing import Optional
+from typing import Dict, Optional
 
 from . import config as _config
 from . import metrics as _metrics
@@ -69,8 +70,10 @@ _WIRE_VERB = {"allreduce": "ALLREDUCE", "grouped_allreduce": "ALLREDUCE",
               "broadcast": "BROADCAST", "grouped_broadcast": "BROADCAST",
               "alltoall": "ALLTOALL"}
 
-#: name of the record_function marker that aligns a profiler session
+#: names of the record_function markers that align a profiler session:
+#: one entered right after the session starts, one right before it stops
 SYNC_MARKER = "hvd_tpu_timeline_sync"
+SYNC_END_MARKER = "hvd_tpu_timeline_sync_end"
 
 #: pid offset separating spliced device-trace processes from the host
 #: timeline's pid 0 lanes in the merged Chrome trace
@@ -164,7 +167,8 @@ class Timeline:
         self._closed = False
         self._w = RecordWriter(path, mode="chrome")
         self._profiler = None
-        #: (exported profiler trace, host time of its sync marker in us)
+        #: (exported profiler trace, {marker name: host time in us at
+        #: which it was about to be entered})
         self._torch_traces = []
 
     @property
@@ -226,42 +230,54 @@ class Timeline:
                          "ts": self._now_us(), "s": "g"})
 
     # -- device side: splice in a torch.profiler session ---------------------
+    def _enter_marker(self, name: str) -> float:
+        """Enter and leave a ``record_function`` marker; returns this
+        timeline's clock read just before it. The profiler stamps the
+        marker later than that read, by as much as the thread waited in
+        between (for the interpreter lock, under load, milliseconds), so
+        the read bounds the marker's host time from below only."""
+        from torch.profiler import record_function
+        before = self._now_us()
+        with record_function(name):
+            pass
+        return before
+
     def start_torch_trace(self, logdir: str):
         """Capture a ``torch.profiler`` session (CPU ops and CUDA kernels)
         whose events are spliced into this timeline file at close();
         counterpart of the JAX package's ``Timeline.start_jax_trace``,
         which captures an XLA device trace. Right after the session
         starts, a ``record_function`` marker (:data:`SYNC_MARKER`) is
-        entered at a host time recorded on this timeline's clock; the
-        splice shifts the session's events by the difference, since the
-        profiler's export has its own time base."""
+        entered, and :meth:`stop_torch_trace` enters a second one
+        (:data:`SYNC_END_MARKER`) right before the session stops; the
+        splice shifts the session's events onto this timeline's clock
+        from the two (the profiler's export has its own time base)."""
         import torch
-        from torch.profiler import ProfilerActivity, profile, record_function
+        from torch.profiler import ProfilerActivity, profile
         activities = [ProfilerActivity.CPU]
         if torch.cuda.is_available():
             activities.append(ProfilerActivity.CUDA)
         os.makedirs(logdir, exist_ok=True)
         prof = profile(activities=activities)
         prof.start()
-        before = self._now_us()
-        with record_function(SYNC_MARKER):
-            after = self._now_us()
-        self._profiler = (prof, logdir, (before + after) / 2)
+        self._profiler = (prof, logdir,
+                          {SYNC_MARKER: self._enter_marker(SYNC_MARKER)})
 
     def stop_torch_trace(self) -> str:
         """Stop the session of :meth:`start_torch_trace` and export its
         Chrome trace into its logdir; returns the file's path. Counterpart
         of ``Timeline.stop_jax_trace``."""
         import torch
-        prof, logdir, marker_us = self._profiler
+        prof, logdir, markers = self._profiler
         self._profiler = None
         if torch.cuda.is_available():
             torch.cuda.synchronize()
+        markers[SYNC_END_MARKER] = self._enter_marker(SYNC_END_MARKER)
         prof.stop()
         path = os.path.join(logdir,
                             f"torch_trace_{len(self._torch_traces)}.json")
         prof.export_chrome_trace(path)
-        self._torch_traces.append((path, marker_us))
+        self._torch_traces.append((path, markers))
         return path
 
     def close(self):
@@ -283,9 +299,9 @@ class Timeline:
         # the splice happens at the FILE level after the writer finishes:
         # profiler events carry past timestamps the stamp-now emit path
         # cannot represent
-        for trace_path, marker_us in self._torch_traces:
+        for trace_path, markers in self._torch_traces:
             try:
-                splice_torch_trace(self._path, trace_path, marker_us)
+                splice_torch_trace(self._path, trace_path, markers)
             except Exception as e:  # a bad trace must not eat the timeline
                 import logging
                 logging.getLogger("horovod_tpu_torch").warning(
@@ -328,7 +344,7 @@ def _read_events(path: str) -> list:
 
 
 def splice_torch_trace(timeline_path: str, trace_path: str,
-                       marker_us: float) -> int:
+                       markers: Dict[str, float]) -> int:
     """Merge an exported ``torch.profiler`` Chrome trace into a written
     host timeline file; counterpart of the JAX package's
     ``splice_jax_trace``, which merges an XLA profiler session.
@@ -336,16 +352,25 @@ def splice_torch_trace(timeline_path: str, trace_path: str,
     The profiler's events keep their process/thread structure but move to
     ``pid + DEVICE_PID_OFFSET`` (the card's kernels, on pid = device
     index, and the profiled CPU ops, on the OS pid) so they render as
-    separate lanes. Their timestamps shift by ``marker_us`` minus the
-    :data:`SYNC_MARKER` event's own timestamp, onto the host timeline's
-    clock. Returns the number of spliced events (0 when the trace holds
-    no marker or no event)."""
+    separate lanes. ``markers`` maps a marker's name (:data:`SYNC_MARKER`,
+    :data:`SYNC_END_MARKER`) to a host time, in us on the timeline's
+    clock, read just before the marker was entered. Each marker found in
+    the trace bounds the shift from the profiler's clock to the host's
+    from below (host time minus the marker's own timestamp), and the
+    splice shifts by the largest of these bounds: the tightest one that
+    places no event later than the host could have seen it. Returns the
+    number of spliced events (0 when the trace holds no marker or no
+    event)."""
     events = _read_events(trace_path)
-    marks = [e for e in events if e.get("name") == SYNC_MARKER
-             and e.get("ph") == "X"]
-    if not marks:
+    bounds = []
+    for name, host_us in markers.items():
+        stamps = [float(e["ts"]) for e in events if e.get("name") == name
+                  and e.get("ph") == "X"]
+        if stamps:
+            bounds.append(host_us - min(stamps))
+    if not bounds:
         return 0
-    shift = marker_us - float(min(e["ts"] for e in marks))
+    shift = max(bounds)
     device_events = []
     for ev in events:
         ev = dict(ev)

@@ -17,7 +17,8 @@ lse within 1e-4. The verbs are exact at size 1 (integer-valued data and
 power-of-two scales); SyncBatchNorm is held to nn.BatchNorm within 1e-5.
 ResNet-18 in fp32 on the card is held to the port's CPU path, and its
 SGD update to the fp64 update, within chip_smoke.py's cnn limits (TF32
-off).
+off). The Spark TorchEstimator trains a small transformer on the card by
+default and is held to a hand loop exactly.
 """
 
 import pytest
@@ -400,3 +401,69 @@ def test_router_over_a_card_replica_answers_as_a_direct_forward(cuda):
     finally:
         router.stop()
         srv.close()
+
+
+def test_spark_torch_estimator_on_the_card_equals_a_hand_loop(cuda):
+    """The Spark TorchEstimator (pandas frame, no pyspark) trains a small
+    transformer through the flash kernel on the card, by default, to the
+    same loss history and parameters as a hand loop of the same batches
+    through DistributedOptimizer(AdamW) (tolerance 0: one process, the
+    same kernels on the same inputs); TorchModel.transform equals a
+    direct forward of the fitted model."""
+    import tempfile
+
+    import numpy as np
+    pd = pytest.importorskip("pandas")
+    pytest.importorskip("pyarrow")
+    from chip_smoke import TokenLoss, TokenModel
+    from horovod_tpu_torch.models import Transformer, TransformerConfig
+    from horovod_tpu_torch.parallel import flash_attention_fn
+    from horovod_tpu_torch.parallel.train import default_optimizer
+    from horovod_tpu_torch.spark.store import LocalStore
+    from horovod_tpu_torch.spark.torch import TorchEstimator
+    cfg = TransformerConfig(vocab_size=256, num_layers=2, d_model=128,
+                            num_heads=2, head_dim=64, max_seq_len=256,
+                            attention_fn=flash_attention_fn)
+
+    def model():
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        return TokenModel(Transformer(cfg, device=cuda, generator=gen))
+    seqs = np.random.RandomState(0).randint(0, 256, (16, 257))
+    frame = pd.DataFrame({"tokens": list(seqs[:, :-1]),
+                          "targets": list(seqs[:, 1:])})
+    hvd.init(process_sets=[[0]])
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            before = fa.LAUNCHES["flash_fwd"]
+            fitted = TorchEstimator(
+                model=model(), optimizer=default_optimizer,
+                loss=TokenLoss(), feature_cols=["tokens"],
+                label_cols=["targets"], batch_size=8, epochs=1,
+                shuffle=False, store=LocalStore(root)).fit(frame)
+            assert fa.LAUNCHES["flash_fwd"] == before + 2 * cfg.num_layers
+        assert fitted.device.type == "cuda"
+        hand = model()
+        opt = hvd.DistributedOptimizer(
+            default_optimizer(hand.parameters()),
+            named_parameters=hand.named_parameters())
+        x = torch.tensor(seqs[:, :-1].astype(np.float32), device=cuda)
+        y = torch.tensor(seqs[:, 1:].astype(np.float32), device=cuda)
+        epoch = 0.0
+        for s in (0, 8):
+            opt.zero_grad()
+            loss = TokenLoss()(hand(x[s:s + 8]), y[s:s + 8])
+            loss.backward()
+            opt.step()
+            epoch += float(loss.detach()) * 8
+        opt.remove_hooks()
+        assert fitted.loss_history == [epoch / 16]
+        state = fitted.getModel().state_dict()
+        assert all(torch.equal(v, state[k])
+                   for k, v in hand.state_dict().items())
+        out = fitted.transform(frame.head(4))
+        preds = np.stack(out[fitted.output_cols[0]].to_numpy())
+        with torch.no_grad():
+            ref = fitted.getModel()(x[:4]).cpu().numpy()
+        assert np.array_equal(preds, ref)
+    finally:
+        hvd.shutdown()

@@ -513,3 +513,71 @@ def test_microbench_command_defaults_to_cuda_and_raises_without():
         microbench.resume_sweep(emitted=4)
     with pytest.raises(RuntimeError, match="CUDA"):
         microbench.sdc_guard_sweep(steps=1, rounds=1)
+
+
+FRONTENDS = ("torch", "torch.elastic", "torch.sync_batch_norm",
+             "tensorflow", "tensorflow.elastic", "tensorflow.keras",
+             "keras", "keras.callbacks", "mxnet", "spark", "spark.store",
+             "spark.estimator", "spark.torch", "spark.keras",
+             "runner.driver_service")
+
+
+def test_frontends_import_with_jax_blocked():
+    """Every framework frontend imports with jax and the JAX package
+    blocked and loads none of them; ``import horovod_tpu_torch`` alone
+    loads no tensorflow, keras, mxnet or pyspark, and the frontends that
+    need none of those load none either."""
+    code = (
+        "import sys\n"
+        f"for m in {sorted(FORBIDDEN)!r}:\n"
+        "    sys.modules[m] = None\n"
+        "import importlib\n"
+        "import horovod_tpu_torch\n"
+        "heavy = ('tensorflow', 'keras', 'mxnet', 'pyspark')\n"
+        "def loaded():\n"
+        "    return sorted(m for m in heavy if m in sys.modules)\n"
+        "assert loaded() == [], loaded()\n"
+        "for name in ('torch', 'torch.elastic', 'torch.sync_batch_norm',\n"
+        "             'tensorflow', 'tensorflow.elastic', 'mxnet', 'spark',\n"
+        "             'spark.store', 'spark.estimator', 'spark.torch',\n"
+        "             'runner.driver_service'):\n"
+        "    importlib.import_module('horovod_tpu_torch.' + name)\n"
+        "assert loaded() == [], loaded()\n"
+        "import torch\n"
+        "assert 'site-packages' in torch.__file__, torch.__file__\n"
+        "try:\n"
+        "    import tensorflow\n"
+        "except ImportError:\n"
+        "    tensorflow = None\n"
+        "if tensorflow is not None:\n"
+        "    for name in ('keras', 'keras.callbacks', 'tensorflow.keras',\n"
+        "                 'spark.keras'):\n"
+        "        importlib.import_module('horovod_tpu_torch.' + name)\n"
+        "bad = [m for m, mod in sys.modules.items() if mod is not None\n"
+        "       and m.split('.')[0] in ('horovod_tpu', 'jax', 'flax',\n"
+        "                               'optax')]\n"
+        "assert not bad, bad\n"
+        "print('ok', tensorflow is not None)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT, TF_CPP_MIN_LOG_LEVEL="3")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-4000:]
+    assert r.stdout.startswith("ok")
+    for name in FRONTENDS:
+        rel = name.replace(".", os.sep)
+        assert os.path.exists(os.path.join(PKG, rel + ".py")) or \
+            os.path.exists(os.path.join(PKG, rel, "__init__.py")), name
+
+
+def test_frontend_entry_points_run_on_cuda_unless_asked():
+    """The Spark TorchEstimator and TorchModel hold tensors of their own:
+    on a box without a card they raise unless given device="cpu"."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    from horovod_tpu_torch.spark.torch import TorchEstimator, TorchModel
+    net = torch.nn.Linear(2, 1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TorchEstimator(model=net)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TorchModel(net, ["x"], ["y"])
+    assert TorchEstimator(model=net, device="cpu").device.type == "cpu"

@@ -22,6 +22,7 @@ import queue
 import socket
 import subprocess
 import sys
+import threading
 import time
 import urllib.request
 
@@ -306,6 +307,10 @@ def test_timeline_splices_profiler_trace_on_host_clock(tmp_path):
     at pid + DEVICE_PID_OFFSET, shifted so that the sync marker sits at
     the host time it was entered (as the JAX package's test of
     splice_jax_trace checks its XLA session)."""
+    _splice_and_check(tmp_path)
+
+
+def _splice_and_check(tmp_path):
     path = str(tmp_path / "tl.json")
     tl = ttl.Timeline(path)
     tl.start("t0", "allreduce")
@@ -328,6 +333,57 @@ def test_timeline_splices_profiler_trace_on_host_clock(tmp_path):
     # the marker was entered between the two host events
     assert b0[0] <= marker[0]["ts"] <= b0[1]
     assert max(e["ts"] for e in dev if "ts" in e) <= b0[1]
+
+
+@pytest.mark.parametrize("run", range(5))
+def test_timeline_splice_holds_under_cpu_load(tmp_path, run):
+    """The same splice and checks beside two CPU-bound threads of this
+    process. Their hold on the interpreter lock delays the profiler's
+    stamp of a sync marker behind the host's clock read by up to a switch
+    interval; a shift taken from the midpoint of two reads around the
+    marker then placed the session's last events after the next host
+    event in most runs."""
+    stop = threading.Event()
+
+    def spin():
+        n = 0
+        while not stop.is_set():
+            n += 1
+    threads = [threading.Thread(target=spin, daemon=True) for _ in range(2)]
+    for t in threads:
+        t.start()
+    try:
+        _splice_and_check(tmp_path)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=10)
+    assert not any(t.is_alive() for t in threads)
+
+
+def test_splice_shift_is_the_largest_lower_bound(tmp_path):
+    """Each marker bounds the profiler-to-host shift from below; the
+    splice takes the largest bound, and a marker missing from the trace
+    bounds nothing."""
+    trace = tmp_path / "trace.json"
+    trace.write_text(json.dumps({"traceEvents": [
+        {"name": ttl.SYNC_MARKER, "ph": "X", "ts": 100.0, "dur": 1,
+         "pid": 1, "tid": 1},
+        {"name": "op", "ph": "X", "ts": 150.0, "dur": 1, "pid": 1,
+         "tid": 1},
+        {"name": ttl.SYNC_END_MARKER, "ph": "X", "ts": 200.0, "dur": 1,
+         "pid": 1, "tid": 1}]}))
+    for markers, shift in (({ttl.SYNC_MARKER: 1000.0,
+                             ttl.SYNC_END_MARKER: 1130.0}, 930.0),
+                           ({ttl.SYNC_MARKER: 1000.0,
+                             ttl.SYNC_END_MARKER: 1090.0}, 900.0),
+                           ({ttl.SYNC_MARKER: 1000.0,
+                             "not_in_the_trace": 5000.0}, 900.0)):
+        tl = tmp_path / f"tl{shift}.json"
+        tl.write_text("[\n")
+        assert ttl.splice_torch_trace(str(tl), str(trace), markers) == 3
+        op = [e for e in ttl._read_events(str(tl)) if e.get("name") == "op"]
+        assert op[0]["ts"] == 150.0 + shift
 
 
 def test_standalone_profiler_session_exports_a_chrome_trace(tmp_path):
