@@ -11,6 +11,12 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
 1. device: the card's name, and its name and power limit as nvidia-smi
    reports them;
 2. build: every CUDA kernel of the port, from the sources in the checkout;
+   then the native host runtime (_native/csrc, built with g++ into
+   build/torch_native/): a "native" line with loaded, the library's path,
+   its build seconds, the ABI version and g++'s version. The script fails
+   if the library did not load: every phase below runs on it (submission
+   table, response cache, fusion planner, stall tracker, metric cells,
+   timeline writer, GP/BO autotuner), as the JAX package's would;
 3. kernel: each kernel against its plain PyTorch version on the card, at
    the training shape and at edge cases, each with its tolerance, and two
    planted faults that the bf16 tolerance must reject; then its time, the
@@ -77,13 +83,22 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
    backward against nn.BatchNorm, then join() and join_round(); each is
    checked exactly against its size-1 answer and timed (ms and GB/s, one
    line per verb; NCCL at size 1 is a device copy, so these are the
-   port's own overheads, not a network's).
+   port's own overheads, not a network's). Then the host plane: each verb
+   on 1 KiB CUDA tensors (HOST_REPS calls, each ending in a device
+   synchronize, so the host's work is most of the time), one metric
+   increment and one timeline emit, timed in this process on the native
+   runtime; after the world is shut down, the same in a child process
+   under HVD_TPU_NATIVE=0 (the pure-Python paths, this slice's plain
+   counterpart) and in a child on the native runtime, in turns: host ms
+   per verb, and us per increment and per emit, both ways.
 
 11. elastic: the launcher and elastic training (after the world of the
    phases above is shut down). (a) ``python -m horovod_tpu_torch.runner
    -np 1`` starts this script as a worker (``--elastic-worker static``):
    3 full-width steps of the default config on NCCL, on the train phase's
-   seeds, whose losses must equal the train phase's first 3, bit for bit.
+   seeds, under HVD_TPU_NATIVE=0 (no native library loaded: the worker
+   says so), whose losses must equal the train phase's first 3 (run on
+   the native runtime), bit for bit: host bookkeeping changes no number.
    (b) The same with ``--min-np 1 --host-discovery-script`` (a script that
    prints localhost:1): the elastic driver, the rendezvous, the
    notification service and heartbeats, the worker under
@@ -112,8 +127,10 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
    (buckets 4 and 8): the rows equal the live rows of a forward at the
    padded shape, and lie within TOL_PREDICT_REL of an unpadded forward.
    (e) The fit again in a world made with HVD_TPU_AUTOTUNE and small
-   sample settings: the threshold changes, the buckets are re-planned,
-   and the losses and parameters equal (a)'s bit for bit.
+   sample settings: the tuner is the native GP/BO, the threshold changes
+   to what it proposes, the buckets are re-planned, and the losses and
+   parameters equal (a)'s bit for bit. Prints the proposed thresholds and
+   the tuner's log.
 13. reductions: the compiled-plane DistributedOptimizer (axis_name=
    "cross", inner_axis="local", mesh= the world's ("cross", "local")
    DeviceMesh, both dims of size 1) training the train phase's model,
@@ -355,17 +372,37 @@ def nvidia_smi_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+def cuda_ms(fn, iters: int, warmup: int = 2, gc_seen=None) -> float:
+    """Mean device ms of ``fn`` over ``iters`` calls (CUDA events after
+    ``warmup`` calls). With a list as ``gc_seen``, the garbage
+    collections that ran inside the timed window are appended to it as
+    (generation, ms): a collection there is host time the launches wait
+    out, and at a host-bound shape it shows in the mean."""
+    import gc
     import torch
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    began = []
+
+    def watch(phase, info):
+        if phase == "start":
+            began.append(time.perf_counter())
+        elif began:
+            gc_seen.append((info["generation"],
+                            1e3 * (time.perf_counter() - began.pop())))
     torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
+    if gc_seen is not None:
+        gc.callbacks.append(watch)
+    try:
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+    finally:
+        if gc_seen is not None:
+            gc.callbacks.remove(watch)
     end.synchronize()
     return start.elapsed_time(end) / iters
 
@@ -534,7 +571,9 @@ def kernel_timing(torch, fa, main):
     import torch.nn.functional as F
     q, k, v, causal, err = main
     bh, s, d = q.shape
-    ms = cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, 0, 0, causal), 20)
+    gc_seen = []
+    ms = cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, 0, 0, causal), 20,
+                 gc_seen=gc_seen)
     plain_ms = cuda_ms(lambda: fa.flash_fwd_plain(
         q, k, v, 0, 0, causal, block_k=fa.KEY_TILE), 5)
     q4, k4, v4 = (t.view(BATCH, bh // BATCH, s, d) for t in (q, k, v))
@@ -736,7 +775,9 @@ def flash_timing(torch, fa, bh, s, d, causal=True, plain_iters=3,
     ref, _ = fa.flash_fwd_plain(q, k, v, 0, 0, causal, block_k=fa.KEY_TILE)
     ratio, share = half_agreement(torch, fa, out, ref, q, k, v, 0, 0,
                                   causal)
-    ms = cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, 0, 0, causal), 20)
+    gc_seen = []
+    ms = cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, 0, 0, causal), 20,
+                 gc_seen=gc_seen)
     plain_ms = cuda_ms(lambda: fa.flash_fwd_plain(
         q, k, v, 0, 0, causal, block_k=fa.KEY_TILE), plain_iters)
     q4, k4, v4 = (t.view(batch, bh // batch, s, d) for t in (q, k, v))
@@ -747,8 +788,9 @@ def flash_timing(torch, fa, bh, s, d, causal=True, plain_iters=3,
                 out.float() - ref.float()).abs().max().item(),
             "max_over_bound": ratio, "mismatch_share": share,
             "agrees": ratio <= 1 and share <= MISMATCH_LIMIT,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            **bound, "tflops": flops / (ms * 1e-3) / 1e12}
+            "ms": ms, "gc_in_window": gc_seen, "plain_ms": plain_ms,
+            "library_ms": library_ms, **bound,
+            "tflops": flops / (ms * 1e-3) / 1e12}
 
 
 def tensor_parallel_phase(torch, fa):
@@ -1217,6 +1259,142 @@ COLLECTIVES_NOTE = ("NCCL at size 1 is a device copy: these are the port's "
                     "not a network's")
 COLLECTIVE_REPS = 3
 TOL_SYNC_BN = 1e-4   # fp32, E[x^2] - E[x]^2 against BatchNorm's variance
+# the host plane: calls of each verb on 1 KiB tensors, metric updates and
+# timeline emits timed in one process
+HOST_REPS = 200
+HOST_METRIC_CALLS = 100_000
+HOST_EMITS = 20_000
+
+
+def host_plane(torch, hvd) -> dict:
+    """The host's cost of the dispatch path in this process, on whichever
+    runtime it loaded (module docstring, phase 10): mean wall ms per call
+    of each verb on 1 KiB CUDA tensors at size 1 (HOST_REPS calls, then a
+    device synchronize: the device's share is a 1 KiB copy), and us per
+    counter increment, histogram observation and timeline emit."""
+    import tempfile
+    from horovod_tpu_torch import _native, metrics, timeline
+    x = torch.ones(256, device="cuda")
+    group = [torch.ones(256, device="cuda") for _ in range(8)]
+    verbs = {
+        "allreduce": lambda: hvd.allreduce(x, name="host.allreduce"),
+        "allreduce_async_synchronize": lambda: hvd.synchronize(
+            hvd.allreduce_async(x, name="host.allreduce_async")),
+        "grouped_allreduce_8": lambda: hvd.grouped_allreduce(
+            group, name="host.grouped_allreduce"),
+        "allgather": lambda: hvd.allgather(x, name="host.allgather"),
+        "broadcast": lambda: hvd.broadcast(x, 0, name="host.broadcast"),
+        "alltoall": lambda: hvd.alltoall(x, name="host.alltoall"),
+    }
+    out = {"native": _native.available(), "library": _native.path,
+           "verb_ms": {v: timed_ms(torch, fn, HOST_REPS)
+                       for v, fn in verbs.items()}}
+    reg = metrics.Registry()
+    counter = reg.counter("host_probe_total")
+    hist = reg.histogram("host_probe_seconds")
+    for name, fn in (("counter_inc_us", counter.inc),
+                     ("histogram_observe_us", lambda: hist.observe(0.003))):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(HOST_METRIC_CALLS):
+            fn()
+        out[name] = (time.perf_counter() - t0) * 1e6 / HOST_METRIC_CALLS
+    out["counter_native"] = counter._children[()]._cell._h is not None
+    if counter._children[()].get() != HOST_METRIC_CALLS + 1:
+        raise AssertionError("the probe counter lost increments")
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        path = os.path.join(tmp, "timeline.json")
+        tl = timeline.Timeline(path)
+        out["timeline_native"] = tl._h is not None
+        t0 = time.perf_counter()
+        for _ in range(HOST_EMITS):
+            tl.activity_start("probe", "QUEUE")
+        out["timeline_emit_us"] = (time.perf_counter() - t0) * 1e6 / HOST_EMITS
+        t0 = time.perf_counter()
+        tl.close()
+        out["timeline_close_ms"] = (time.perf_counter() - t0) * 1e3
+        with open(path) as f:
+            out["timeline_events_written"] = sum(
+                1 for e in json.load(f) if e.get("name") == "QUEUE")
+    return out
+
+
+def host_plane_child(out_path: str) -> int:
+    """``chip_smoke.py --host-plane <out.json>``: init() on the card at
+    size 1, :func:`host_plane`, shutdown(); the parent sets or clears
+    HVD_TPU_NATIVE."""
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import horovod_tpu_torch as hvd
+    hvd.init()
+    out = host_plane(torch, hvd)
+    hvd.shutdown()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def host_plane_phase(in_process: dict) -> None:
+    """The host plane both ways (module docstring, phase 10): children on
+    the native runtime and under HVD_TPU_NATIVE=0, in turns, beside the
+    in-process measurement the collectives phase took."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "chip_host_plane")
+    os.makedirs(work, exist_ok=True)
+    runs = {}
+    for i, mode in enumerate(("python", "native", "native", "python")):
+        env = dict(os.environ)
+        env.pop("HVD_TPU_NATIVE", None)
+        if mode == "python":
+            env["HVD_TPU_NATIVE"] = "0"
+        out = os.path.join(work, f"{i}.{mode}.json")
+        r = subprocess.run(
+            [sys.executable, os.path.join(root, "chip_smoke.py"),
+             "--host-plane", out], env=env, cwd=root, capture_output=True,
+            text=True, timeout=300)
+        if r.returncode != 0:
+            raise AssertionError(f"host-plane child ({mode}) exited "
+                                 f"{r.returncode}:\n{r.stderr[-4000:]}")
+        runs.setdefault(mode, []).append(json.load(open(out)))
+    keys = ("counter_inc_us", "histogram_observe_us", "timeline_emit_us")
+
+    def best(mode):
+        """Per verb and per call, the lower of the two children's times."""
+        rs = runs[mode]
+        row = {"verb_ms": {v: min(r["verb_ms"][v] for r in rs)
+                           for v in rs[0]["verb_ms"]}}
+        row.update({k: min(r[k] for r in rs) for k in keys})
+        return row
+    native, python = best("native"), best("python")
+    checks = {
+        "children_native": all(r["native"] and r["counter_native"]
+                               and r["timeline_native"]
+                               for r in runs["native"]),
+        "children_python": all(not r["native"] and not r["counter_native"]
+                               and not r["timeline_native"]
+                               for r in runs["python"]),
+        "in_process_native": in_process["native"]
+        and in_process["timeline_native"],
+        "every_emit_written": all(
+            r["timeline_events_written"] == HOST_EMITS
+            for rs in runs.values() for r in rs),
+    }
+    emit({"phase": "native_host_plane", "reps": HOST_REPS,
+          "metric_calls": HOST_METRIC_CALLS, "emits": HOST_EMITS,
+          "native": native, "python": python,
+          "native_over_python": {
+              **{v: native["verb_ms"][v] / python["verb_ms"][v]
+                 for v in native["verb_ms"]},
+              **{k: native[k] / python[k] for k in keys}},
+          "in_process_native": in_process,
+          "runs": runs, "checks": checks, "ok": all(checks.values()),
+          "note": "min of two children per mode, run python, native, "
+                  "native, python; wall ms per verb call at size 1 on "
+                  "1 KiB tensors (a device synchronize after the loop)"})
+    if not all(checks.values()):
+        raise AssertionError(f"host-plane phase failed: {checks}")
 
 
 def timed_ms(torch, fn, reps: int) -> float:
@@ -1403,6 +1581,8 @@ def collectives_phase(torch, hvd, collectives, bundle):
     emit({"phase": "collectives_sync_bn_error",
           "max_abs_err_out_and_dx": out["bn_err"]})
 
+    out["host_plane"] = host_plane(torch, hvd)
+
     # join last: afterwards this process contributes zeros to reductions
     def join_checks():
         probe = flat[0][:8]
@@ -1413,6 +1593,7 @@ def collectives_phase(torch, hvd, collectives, bundle):
     out["round_before"] = hvd.join_round()
     report("join", lambda: out.__setitem__("last", hvd.join()), 8,
            join_checks, reps=1)
+    return out["host_plane"]
 
 
 # -- elastic phase -----------------------------------------------------------
@@ -1448,6 +1629,7 @@ def elastic_worker(mode: str, out_path: str) -> int:
     import torch
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import _native
     from horovod_tpu_torch.models import TransformerConfig
     from horovod_tpu_torch.ops import flash_attention as fa
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1479,7 +1661,8 @@ def elastic_worker(mode: str, out_path: str) -> int:
            "commit_save_ms": [1e3 * a for a, _ in commits],
            "commit_durable_ms": [1e3 * b for _, b in commits],
            "state_dir": os.environ.get("HVD_TPU_ELASTIC_STATE_DIR", ""),
-           "elastic_env": os.environ.get("HVD_TPU_ELASTIC", "")}
+           "elastic_env": os.environ.get("HVD_TPU_ELASTIC", ""),
+           "native": _native.available()}
     with open(out_path, "w") as f:
         json.dump(out, f)
     hvd.shutdown()
@@ -1504,12 +1687,13 @@ def kill_matching(token: str) -> None:
                 os.kill(int(pid), signal.SIGKILL)
 
 
-def launch_runner(args, token: str, timeout: float = 600):
+def launch_runner(args, token: str, timeout: float = 600, env_extra=None):
     """``python -m horovod_tpu_torch.runner *args`` from the checkout's
-    root; returns (exit code, output, seconds). Past ``timeout`` the
-    launcher and every process holding ``token`` are killed."""
+    root, with ``env_extra`` added to the environment; returns (exit
+    code, output, seconds). Past ``timeout`` the launcher and every
+    process holding ``token`` are killed."""
     root = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ)
+    env = dict(os.environ, **(env_extra or {}))
     env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
     t0 = time.perf_counter()
     proc = subprocess.Popen(
@@ -1541,20 +1725,24 @@ def elastic_phase(torch, fa, cfg, main_losses):
     me = os.path.join(root, "chip_smoke.py")
     want = main_losses[:ELASTIC_STEPS]
 
-    # 1. static launch, -np 1
+    # 1. static launch, -np 1, on the pure-Python host plane: the losses
+    # of the train phase (native) must not depend on it
     out = os.path.join(work, "static.json")
     code, log, secs = launch_runner(
         ["-np", "1", "--", sys.executable, me, "--elastic-worker", "static",
-         out], token=out)
+         out], token=out, env_extra={"HVD_TPU_NATIVE": "0"})
     if code != 0:
         raise AssertionError(f"static launch exited {code}:\n{log[-6000:]}")
     static = json.load(open(out))
     static.update(phase="elastic_static_launch", launcher_seconds=secs,
-                  in_process_losses=want, ok=static["losses"] == want)
+                  in_process_losses=want, env={"HVD_TPU_NATIVE": "0"},
+                  losses_bit_equal_native_train=static["losses"] == want,
+                  ok=static["losses"] == want and not static["native"])
     emit(static)
     if not static["ok"]:
-        raise AssertionError("a launched worker's losses differ from the "
-                             "same steps run in-process")
+        raise AssertionError("the worker under HVD_TPU_NATIVE=0 loaded the "
+                             "native runtime, or its losses differ from "
+                             "the same steps run in-process on it")
 
     # 2. elastic launch at size 1: driver, rendezvous, notification
     # service, heartbeats, a TorchState commit (durable) every step
@@ -1574,6 +1762,7 @@ def elastic_phase(torch, fa, cfg, main_losses):
               in_process_losses=want,
               state_dir_removed=not os.path.exists(el["state_dir"]),
               ok=el["losses"] == want and el["elastic_env"] == "1"
+              and el["native"]
               and len(el["commit_save_ms"]) == ELASTIC_STEPS
               and el["flash_launches"] == cfg.num_layers * ELASTIC_STEPS)
     emit(el)
@@ -1673,9 +1862,12 @@ EST_SEQS = 32            # sequences of the epoch: 4 steps at batch 8
 # element then carries a few bf16 roundings (2^-8 each) more or less:
 # relative L2 within 2^-7, as the tp layer's
 TOL_PREDICT_REL = 2.0 ** -7
-AUTOTUNE_SETTINGS = {"AUTOTUNE": True, "AUTOTUNE_WARMUP_SAMPLES": 1,
+# the fit's 4 steps are 3 scored samples and the lock: the GP/BO's first
+# proposal (one observation) is the 64 MB default again, its second one
+# another threshold
+AUTOTUNE_SETTINGS = {"AUTOTUNE": True, "AUTOTUNE_WARMUP_SAMPLES": 0,
                      "AUTOTUNE_STEPS_PER_SAMPLE": 1,
-                     "AUTOTUNE_BAYES_OPT_MAX_SAMPLES": 2}
+                     "AUTOTUNE_BAYES_OPT_MAX_SAMPLES": 3}
 
 
 def _estimator_model(torch, cfg, device="cuda"):
@@ -1871,13 +2063,22 @@ def estimator_phase(torch, fa, cfg, train_ms):
 
     # (e) autotune: a world whose ParameterManager scores every step
     hvd.shutdown()
-    hvd.init(config_overrides=AUTOTUNE_SETTINGS)
+    tune_log = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "chip_autotune.log")
+    with contextlib.suppress(FileNotFoundError):
+        os.remove(tune_log)
+    hvd.init(config_overrides=dict(AUTOTUNE_SETTINGS, AUTOTUNE_LOG=tune_log))
+    pm = hvd.basics.world().parameter_manager
+    proposer = type(pm._opt).__name__
     scored = metrics.snapshot().get("hvd_tpu_autotune_samples_total", 0.0)
     est = Estimator(_estimator_model(torch, cfg), seed=0)
     t_losses, t_secs, launches["estimator_autotune"] = _fit(
         torch, fa, est, x, y)
     plans = est._opt.plans
+    with open(tune_log) as f:
+        log_lines = [line.rstrip() for line in f]
     tuned = {"phase": "estimator_autotune", "settings": AUTOTUNE_SETTINGS,
+             "proposer": proposer, "autotune_log": log_lines,
              "losses": t_losses, "untuned_losses": losses,
              "step_seconds": t_secs,
              "thresholds": [t for t, _ in plans],
@@ -1888,7 +2089,8 @@ def estimator_phase(torch, fa, cfg, train_ms):
              "flash_launches": launches["estimator_autotune"]}
     tuned["ok"] = (t_losses == losses and tuned["params_equal_untuned"]
                    and tuned["samples_scored"] >= 2 and len(plans) >= 2
-                   and len(set(tuned["thresholds"])) >= 2)
+                   and len(set(tuned["thresholds"])) >= 2
+                   and proposer == "_NativeOptimizer")
     emit(tuned)
     est._opt.remove_hooks()
     del est
@@ -3896,6 +4098,35 @@ def microbench_phase(torch):
         raise AssertionError(f"microbench phase failed: {checks}")
 
 
+def native_phase() -> None:
+    """Build and load the native host runtime (module docstring, phase
+    2); fails when it does not load: on this machine the pure-Python
+    paths must not stand in for it unnoticed."""
+    from horovod_tpu_torch import _native
+    from horovod_tpu_torch._native import build as native_build
+    t0 = time.perf_counter()
+    nat = _native.get()
+    seconds = time.perf_counter() - t0
+    cxx = os.environ.get("CXX", "g++")
+    try:
+        version = subprocess.run([cxx, "--version"], capture_output=True,
+                                 text=True, timeout=60).stdout
+        version = version.splitlines()[0] if version else "no output"
+    except (OSError, subprocess.TimeoutExpired) as e:
+        version = f"not runnable: {e}"
+    line = {"phase": "native", "loaded": nat is not None,
+            "path": _native.path,
+            "build_seconds": native_build.last_build_seconds,
+            "get_seconds": seconds,
+            "abi": nat.cdll.hvd_abi_version() if nat is not None else None,
+            "cxx": cxx, "cxx_version": version,
+            "HVD_TPU_NATIVE": os.environ.get("HVD_TPU_NATIVE")}
+    emit(line)
+    if nat is None or line["abi"] != _native.ABI_VERSION:
+        raise AssertionError("the native host runtime did not load: "
+                             f"{line}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3923,6 +4154,7 @@ def main() -> int:
     ptxas = ptxas_report(_build.build_logs.values())
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_kernel_seconds": per_kernel, "ptxas": ptxas})
+    native_phase()
 
     main_case = kernel_cases(torch, fa)
     row = kernel_timing(torch, fa, main_case)
@@ -3948,10 +4180,11 @@ def main() -> int:
     fleet_launches = fleet_phase(torch, fa, cfg, bundle, tokens, targets)
     bundle.optimizer.remove_hooks()
     # last: its join() leaves this process contributing zeros
-    collectives_phase(torch, hvd, collectives, bundle)
+    host = collectives_phase(torch, hvd, collectives, bundle)
     hvd.shutdown()
     del bundle
     torch.cuda.empty_cache()
+    host_plane_phase(host)
     elastic_launches = elastic_phase(torch, fa, cfg, losses)
     estimator_launches, _ = estimator_phase(torch, fa, cfg, train_ms)
     reduction_launches = reductions_phase(torch, fa, cfg, losses)
@@ -3993,4 +4226,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--elastic-worker"]:
         sys.exit(elastic_worker(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--host-plane"]:
+        sys.exit(host_plane_child(sys.argv[2]))
     sys.exit(main())

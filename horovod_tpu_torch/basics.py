@@ -142,6 +142,28 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+#: listens tried on ports of our own choosing before init() gives up
+_STORE_PORT_TRIES = 5
+
+
+def _tcp_store(host, port, n, pid, timeout):
+    """The world's TCPStore. With ``port`` None (a world of one), the
+    port is chosen here, and one that another socket took between the
+    choice and the store's listen (EADDRINUSE, seen on an elastic reset
+    on the card) is chosen again, up to ``_STORE_PORT_TRIES`` times."""
+    if port is not None:
+        return dist.TCPStore(host, int(port), world_size=n,
+                             is_master=pid == 0, timeout=timeout)
+    for attempt in range(_STORE_PORT_TRIES):
+        try:
+            return dist.TCPStore(host, _free_port(), world_size=1,
+                                 is_master=True, timeout=timeout)
+        except dist.DistNetworkError as e:
+            if "EADDRINUSE" not in str(e) \
+                    or attempt == _STORE_PORT_TRIES - 1:
+                raise
+
+
 def init(process_sets: Optional[Sequence[Sequence[int]]] = None,
          device=None, coordinator_address: Optional[str] = None,
          num_processes: Optional[int] = None,
@@ -182,11 +204,9 @@ def init(process_sets: Optional[Sequence[Sequence[int]]] = None,
             host, _, port = addr.rpartition(":")
         else:
             n, pid = 1, 0
-            host, port = "127.0.0.1", _free_port()
-        store = dist.TCPStore(
-            host, int(port), world_size=n, is_master=pid == 0,
-            timeout=datetime.timedelta(
-                seconds=cfg.get(_config.INIT_TIMEOUT_SECONDS)))
+            host, port = "127.0.0.1", None
+        store = _tcp_store(host, port, n, pid, datetime.timedelta(
+            seconds=cfg.get(_config.INIT_TIMEOUT_SECONDS)))
         kwargs = {"device_id": dev} if dev.type == "cuda" else {}
         dist.init_process_group(
             backend, store=store, world_size=n, rank=pid,

@@ -328,10 +328,14 @@ TIMELINE_MARK_CYCLES = _register(
     alias="HOROVOD_TIMELINE_MARK_CYCLES")
 TIMELINE_QUEUE_EVENTS = _register(
     "TIMELINE_QUEUE_EVENTS", 65536, int,
-    help="Bound on the timeline/tracer record queue (records, not "
-         "bytes). A slow or dead disk drops records beyond this, counted "
-         "in hvd_tpu_timeline_dropped_total, instead of growing the queue "
-         "without bound. 0 = unbounded.")
+    help="Bound on the Python record queue (records, not bytes) of the "
+         "request tracer, and of the timeline under HVD_TPU_NATIVE=0. A "
+         "slow or dead disk drops records beyond this, counted in "
+         "hvd_tpu_timeline_dropped_total, instead of growing the queue "
+         "without bound. 0 = unbounded. The native timeline writer, taken "
+         "when the native runtime loads, has an unbounded queue and drops "
+         "nothing, as the JAX package's does: this bound does not hold "
+         "there.")
 TRACE_SAMPLE = _register(
     "TRACE_SAMPLE", 0.0, float,
     help="Head-based sampling rate for the per-request tracer "

@@ -2,8 +2,10 @@
 ``horovod_tpu/fusion.py``.
 
 Buckets are formed greedily from traversal order, so every process builds
-identical buckets without negotiation. This is the pure-Python planner;
-the JAX package's native planner (``_native/``) computes the same plan.
+identical buckets without negotiation. The planner runs in the native
+runtime when it loads (``_native/csrc/fusion.cc``, ``hvd_plan_buckets``)
+and in Python under ``HVD_TPU_NATIVE=0``; the two plans are equal, and
+equal to the JAX package's, at every threshold.
 
 Two consumers share the planner, as in the JAX package: the eager
 plane (:func:`bucketed_apply`, dtypes mixed in a bucket) and the
@@ -13,12 +15,14 @@ threshold) and equals the JAX package's tuple for the same shapes and
 dtype names.
 """
 
+import ctypes
 from functools import lru_cache
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ._native import get as _native_get
 from .tensor_table import dtype_str
 
 
@@ -42,6 +46,16 @@ def plan_buckets(shapes_dtypes: Sequence[Tuple[tuple, Any]],
     HOROVOD_FUSION_THRESHOLD=0 semantics."""
     sizes = [int(np.prod(shape, dtype=np.int64)) * _itemsize(dtype)
              for shape, dtype in shapes_dtypes]
+    nat = _native_get()
+    if nat is not None and sizes:
+        n = len(sizes)
+        out = (ctypes.c_int32 * n)()
+        nb = nat.cdll.hvd_plan_buckets(
+            (ctypes.c_int64 * n)(*sizes), n, int(threshold_bytes), out)
+        buckets = [[] for _ in range(int(nb))]
+        for i in range(n):
+            buckets[out[i]].append(i)
+        return buckets
     if threshold_bytes <= 0:
         return [[i] for i in range(len(sizes))]
     buckets: List[List[int]] = []

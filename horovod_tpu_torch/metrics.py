@@ -3,9 +3,11 @@
 A thread-safe registry of counters, gauges and fixed-bucket histograms,
 with the JAX package's family names, labels, text exposition and
 snapshot form, so both packages export the same series for the same
-sequence of operations. The registry is pure Python (the JAX package's
-cells may be backed by its native runtime, which the port does not
-have).
+sequence of operations. As in the JAX package, a cell is a lock-free
+native atomic (``_native/csrc/metrics.cc``) when the native runtime
+loads, and a float under a mutex under ``HVD_TPU_NATIVE=0``; the cell
+resolves its backing at first use, so importing the package never builds
+the library.
 
 Read paths:
 
@@ -24,11 +26,13 @@ cycles; ``HVD_TPU_METRICS=0`` turns every write into a no-op.
 """
 
 import bisect
+import ctypes
 import json
 from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 from . import _locks
 from . import config as _config
+from ._native import get as _native_get
 
 #: Default latency buckets in seconds: 100us .. 10s, roughly logarithmic
 #: (Prometheus client default buckets).
@@ -48,23 +52,60 @@ def _escape_label(v: str) -> str:
 
 
 class _Cell:
-    """One scalar sample (counter or gauge): a float under a mutex."""
+    """One scalar sample (counter or gauge): a native atomic double when
+    the library loads, else a float under a mutex. The backing resolves
+    at first use, not at construction: subsystems register families when
+    they are imported, and an import must never start the native build.
+    First use is in practice ``init()``."""
 
-    __slots__ = ("_lock", "_v")
+    __slots__ = ("_nat", "_h", "_ready", "_lock", "_v")
 
     def __init__(self):
+        self._ready = False
+        self._nat = None
+        self._h = None
         self._lock = _locks.lock("metrics._Cell._lock")
         self._v = 0.0
 
+    def _resolve(self) -> None:
+        with self._lock:
+            if not self._ready:
+                self._nat = _native_get()
+                if self._nat is not None:
+                    self._h = self._nat.cdll.hvd_mtr_create()
+                self._ready = True
+
+    def __del__(self):
+        h, self._h = getattr(self, "_h", None), None
+        if h:
+            try:
+                self._nat.cdll.hvd_mtr_destroy(h)
+            except Exception:
+                pass
+
     def inc(self, amount: float = 1.0) -> None:
+        if not self._ready:
+            self._resolve()
+        if self._h is not None:
+            self._nat.cdll.hvd_mtr_add(self._h, float(amount))
+            return
         with self._lock:
             self._v += amount
 
     def set(self, value: float) -> None:
+        if not self._ready:
+            self._resolve()
+        if self._h is not None:
+            self._nat.cdll.hvd_mtr_set(self._h, float(value))
+            return
         with self._lock:
             self._v = float(value)
 
     def get(self) -> float:
+        if not self._ready:
+            self._resolve()
+        if self._h is not None:
+            return float(self._nat.cdll.hvd_mtr_get(self._h))
         with self._lock:
             return self._v
 
@@ -118,30 +159,59 @@ class Gauge:
 
 class Histogram:
     """Fixed-bucket histogram child. Buckets are upper bounds (``le``);
-    an implicit ``+Inf`` bucket closes the distribution."""
+    an implicit ``+Inf`` bucket closes the distribution. Native-backed
+    (one atomic bucket add and a CAS sum add) when the library loads,
+    resolved at first use as :class:`_Cell` is."""
 
-    __slots__ = ("_lock", "_bounds", "_counts", "_sum", "_count",
-                 "_registry", "_exemplar")
+    __slots__ = ("_nat", "_h", "_ready", "_lock", "_bounds", "_counts",
+                 "_sum", "_count", "_registry", "_exemplar")
 
     def __init__(self, registry: "Registry", buckets: Sequence[float]):
         self._registry = registry
         self._bounds = tuple(sorted(float(b) for b in buckets))
         if not self._bounds:
             raise ValueError("histogram needs at least one bucket bound")
+        self._ready = False
+        self._nat = None
+        self._h = None
         self._lock = _locks.lock("metrics.Histogram._lock")
         self._counts = [0] * (len(self._bounds) + 1)
         self._sum = 0.0
         self._count = 0
         self._exemplar = None
 
+    def _resolve(self) -> None:
+        with self._lock:
+            if not self._ready:
+                self._nat = _native_get()
+                if self._nat is not None:
+                    arr = (ctypes.c_double * len(self._bounds))(*self._bounds)
+                    self._h = self._nat.cdll.hvd_hist_create(
+                        arr, len(self._bounds))
+                self._ready = True
+
+    def __del__(self):
+        h, self._h = getattr(self, "_h", None), None
+        if h:
+            try:
+                self._nat.cdll.hvd_hist_destroy(h)
+            except Exception:
+                pass
+
     def observe(self, value: float, exemplar: Optional[str] = None) -> None:
         if not self._registry.enabled:
             return
+        if not self._ready:
+            self._resolve()
         v = float(value)
         if exemplar:
-            # the most recent traced observation (a debugging handle; the
-            # text exposition stays 0.0.4)
+            # the most recent traced observation, kept on the Python side
+            # on both backends (a debugging handle; the text exposition
+            # stays 0.0.4)
             self._exemplar = (str(exemplar), v)
+        if self._h is not None:
+            self._nat.cdll.hvd_hist_observe(self._h, v)
+            return
         idx = bisect.bisect_left(self._bounds, v)
         with self._lock:
             self._counts[idx] += 1
@@ -155,6 +225,17 @@ class Histogram:
 
     def read(self) -> Tuple[Tuple[int, ...], float, int]:
         """(per-bucket counts incl. +Inf, sum, count) — non-cumulative."""
+        if not self._ready:
+            self._resolve()
+        if self._h is not None:
+            n = len(self._bounds) + 1
+            counts = (ctypes.c_uint64 * n)()
+            s = ctypes.c_double(0.0)
+            total = ctypes.c_uint64(0)
+            self._nat.cdll.hvd_hist_read(
+                self._h, counts, ctypes.byref(s), ctypes.byref(total))
+            return tuple(int(c) for c in counts), float(s.value), \
+                int(total.value)
         with self._lock:
             return tuple(self._counts), self._sum, self._count
 

@@ -16,10 +16,12 @@ Protocol (the JAX package's, step for step):
 * after ``HVD_TPU_AUTOTUNE_STEPS_PER_SAMPLE`` steps a sample completes with
   score = bytes/sec; the first ``HVD_TPU_AUTOTUNE_WARMUP_SAMPLES`` samples
   of a phase are discarded;
-* each scored sample feeds the optimizer, which proposes the next value.
-  The port has no native GP/BO (the JAX package's ``_native``): it always
-  uses the deterministic Python optimizer, the JAX package's fallback
-  (its path under ``HVD_TPU_NATIVE=0``);
+* each scored sample feeds the optimizer, which proposes the next value:
+  the native GP/BO (``_native/csrc/bo.cc``, expected improvement over an
+  RBF-kernel GP, seed 1234, 512 candidates) when the native runtime
+  loads, else the deterministic Python maximizer, as in the JAX package
+  (its path under ``HVD_TPU_NATIVE=0``). Both are deterministic, so the
+  port proposes the JAX package's thresholds on either path;
 * after ``HVD_TPU_AUTOTUNE_BAYES_OPT_MAX_SAMPLES`` samples the knob locks
   on the best value seen and tuning moves to the next knob: the fusion
   threshold, then ``HVD_TPU_PACK_CUTOFF``. The port's grouped allreduce
@@ -35,12 +37,14 @@ one order of wire calls); boundaries align because every process counts
 the same ``record()`` calls.
 """
 
+import ctypes
 import math
 import time
 from typing import Optional
 
 from . import config as _config
 from . import metrics as _metrics
+from ._native import get as _native_get
 
 # The live tuned values as gauges: when throughput shifts after a knob
 # lock, the operator sees WHICH threshold the tuner settled on without
@@ -64,10 +68,11 @@ _KNOBS = (
 
 
 class _PythonFallbackOptimizer:
-    """Deterministic 1-D maximizer used when the native GP/BO is unbuilt:
-    sweeps a coarse grid, then golden-section refines around the incumbent.
-    Same interface as the native BO (observe/suggest), same determinism
-    property (identical history -> identical suggestion)."""
+    """Deterministic 1-D maximizer used when the native GP/BO is not
+    loaded (``HVD_TPU_NATIVE=0`` or no compiler): sweeps a coarse grid,
+    then golden-section refines around the incumbent. Same interface as
+    the native BO (observe/suggest), same determinism property
+    (identical history -> identical suggestion)."""
 
     def __init__(self, lo: float, hi: float):
         self._lo, self._hi = lo, hi
@@ -92,6 +97,33 @@ class _PythonFallbackOptimizer:
         return min(self._hi, max(self._lo, probe))
 
 
+class _NativeOptimizer:
+    """The native GP/BO over one knob's log2 range: the next point is the
+    expected-improvement argmax over 512 pseudo-random candidates, a pure
+    function of the observation history (seed 1234)."""
+
+    def __init__(self, nat, lo: float, hi: float, seed: int = 1234):
+        self._nat = nat
+        self._b = nat.cdll.hvd_bo_create(
+            1, (ctypes.c_double * 1)(lo), (ctypes.c_double * 1)(hi), seed)
+
+    def __del__(self):
+        b, self._b = getattr(self, "_b", None), None
+        if b:
+            try:
+                self._nat.cdll.hvd_bo_destroy(b)
+            except Exception:
+                pass
+
+    def observe(self, x: float, y: float):
+        self._nat.cdll.hvd_bo_observe(self._b, (ctypes.c_double * 1)(x), y)
+
+    def suggest(self) -> float:
+        out = (ctypes.c_double * 1)()
+        self._nat.cdll.hvd_bo_suggest(self._b, 512, out)
+        return float(out[0])
+
+
 class ParameterManager:
     """Created by ``init()`` when HVD_TPU_AUTOTUNE is set; consulted by
     ``DistributedOptimizer`` each step."""
@@ -107,6 +139,7 @@ class ParameterManager:
         self._max_samples = int(
             cfg.get(_config.AUTOTUNE_BAYES_OPT_MAX_SAMPLES))
         self._log_path = cfg.get(_config.AUTOTUNE_LOG)
+        self._nat = _native_get()
         self._values = {name: int(cfg.get(getattr(_config, name)))
                         for name, _lo, _hi in _KNOBS}
         self._phase = 0
@@ -125,7 +158,10 @@ class ParameterManager:
     def _enter_phase(self, phase: int) -> None:
         self._phase = phase
         name, lo, hi = _KNOBS[phase]
-        self._opt = _PythonFallbackOptimizer(lo, hi)
+        if self._nat is not None:
+            self._opt = _NativeOptimizer(self._nat, lo, hi)
+        else:
+            self._opt = _PythonFallbackOptimizer(lo, hi)
         self._best = (self._values[name], -1.0)
         self._samples_done = 0
         self._warmup_left = self._warmup_samples

@@ -206,10 +206,12 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def check_build() -> str:
     """Availability matrix (reference: launch.py:110 check_build): torch,
-    its CUDA build and the cards it sees, and the data plane's backends.
-    The device query runs in a killable subprocess, so a wedged driver
-    cannot hang a diagnostics command."""
+    its CUDA build and the cards it sees, the data plane's backends, the
+    native host runtime (built at first use, so this may build it) and the
+    kernels' compiler. The device query runs in a killable subprocess, so
+    a wedged driver cannot hang a diagnostics command."""
     from .. import __version__
+    from .._native import get as native_get
     from ..ops import _build
     try:
         nvcc_path, nvcc = _build.nvcc(), "X"
@@ -239,6 +241,7 @@ def check_build() -> str:
         torch_line = "[ ] PyTorch (probe failed or timed out)"
         cuda_line = "[ ] CUDA unavailable"
         nccl = gloo = " "
+    native = "X" if native_get() is not None else " "
     from .mpi_run import MISSING_IMPL, UNKNOWN_IMPL, get_mpi_implementation
     mpi_impl = get_mpi_implementation()
     mpi_mark = " " if mpi_impl in (MISSING_IMPL, UNKNOWN_IMPL) else "X"
@@ -254,6 +257,10 @@ Available Frameworks:
 Data Plane (torch.distributed):
     [{nccl}] NCCL (the card)
     [{gloo}] gloo (the CPU)
+
+Native Core (C++):
+    [{native}] tensor table / fusion planner / response cache / wire
+    [{native}] timeline writer / stall tracker / GP-BO autotuner
 
 Hand-written kernels (ops/csrc, built by nvcc on first use):
     [{nvcc}] nvcc {nvcc_path}

@@ -1,5 +1,4 @@
-"""Stall inspector (counterpart of ``horovod_tpu/stall.py``, its
-pure-Python table).
+"""Stall inspector (counterpart of ``horovod_tpu/stall.py``).
 
 Tracks when each named collective was submitted and logs a warning when
 one has waited longer than ``HVD_TPU_STALL_CHECK_TIME_SECONDS`` (default
@@ -17,8 +16,15 @@ names in its warnings and in the StallError the first mismatched call
 site across ranks (:func:`._schedule.divergence_hint`, with
 ``HVD_TPU_SCHEDULE_CHECK``) and the request that was in flight
 (:func:`.tracing.last_request_id`).
+
+The per-submission bookkeeping (a mutexed table and steady-clock stamps)
+runs in the native runtime when it loads (``_native/csrc/stall.cc``), so
+the submit path pays one ctypes call; the poll thread, the logging and
+the raising stay here, and a Python table takes the native one's place
+under ``HVD_TPU_NATIVE=0``.
 """
 
+import ctypes
 import logging
 import threading
 import time
@@ -29,6 +35,7 @@ from . import _schedule
 from . import config as _config
 from . import metrics as _metrics
 from . import tracing as _tracing
+from ._native import get as _native_get
 from .exceptions import StallError
 
 _log = logging.getLogger("horovod_tpu_torch")
@@ -57,6 +64,8 @@ class StallInspector:
         self._lock = _locks.lock("stall.StallInspector._lock")
         self._pending: Dict[str, float] = {}
         self._warned: Dict[str, bool] = {}
+        self._nat = _native_get()
+        self._h = self._nat.cdll.hvd_stall_create() if self._nat else None
         self._stop_evt = threading.Event()
         self._shutdown_deadline_hit = False
         self._stopped = False
@@ -66,14 +75,33 @@ class StallInspector:
                 target=self._loop, name="hvd_tpu_torch_stall", daemon=True)
             self._thread.start()
 
+    def __del__(self):
+        h, self._h = getattr(self, "_h", None), None
+        if h:
+            try:
+                self._nat.cdll.hvd_stall_destroy(h)
+            except Exception:
+                pass
+
+    # The native path takes no Python lock (the native table has its own
+    # mutex). It is memory-safe because stop() never frees the native
+    # table, only __del__ does, and a submitter still holding this
+    # inspector keeps it alive: an elastic reset that replaces the
+    # inspector cannot free a table a racing submitter is inside.
     def record_submit(self, name: str):
         if self._stopped:
+            return
+        if self._h is not None:
+            self._nat.cdll.hvd_stall_submit(self._h, name.encode())
             return
         with self._lock:
             self._pending.setdefault(name, time.monotonic())
 
     def record_done(self, name: str):
         if self._stopped:
+            return
+        if self._h is not None:
+            self._nat.cdll.hvd_stall_done(self._h, name.encode())
             return
         with self._lock:
             self._pending.pop(name, None)
@@ -137,7 +165,12 @@ class StallInspector:
                     f" (request {rid} in flight)" if rid else "")
 
     def _quiet(self) -> bool:
-        """No collective is still flagged stalled."""
+        """No collective is still flagged stalled (Python table); the
+        native table reports only newly stalled names, so quiet is assumed
+        there, as in the JAX package: check_shutdown recomputes a fresh
+        diagnosis whenever the cached one is empty."""
+        if self._h is not None:
+            return True
         with self._lock:
             return not self._warned
 
@@ -147,6 +180,18 @@ class StallInspector:
         if self._stopped:
             return []
         prior_hit = self._shutdown_deadline_hit
+        if self._h is not None:
+            hit = ctypes.c_int32(0)
+            buf = ctypes.create_string_buffer(1 << 16)
+            n = self._nat.cdll.hvd_stall_check(
+                self._h, float(warn_after), float(shutdown_after),
+                ctypes.byref(hit), buf, len(buf))
+            if hit.value and not self._stopped:
+                self._shutdown_deadline_hit = True
+            if self._shutdown_deadline_hit and not prior_hit:
+                _M_STALL_SHUTDOWNS.inc()
+            return buf.value.decode().split("\n") if n > 0 and buf.value \
+                else []
         now = time.monotonic()
         newly = []
         with self._lock:

@@ -1,5 +1,5 @@
 """Named-tensor table, async handles and the request wire format
-(counterpart of ``horovod_tpu/tensor_table.py``, its pure-Python path).
+(counterpart of ``horovod_tpu/tensor_table.py``).
 
 * :class:`TensorTable` hands out integer handles and rejects a name that
   is already in flight (the reference's DUPLICATE_NAME_ERROR,
@@ -9,8 +9,15 @@
   is the CRC-32 of it, byte for byte the JAX package's for the same
   metadata: a torch dtype is written as the string numpy writes for the
   same type (``torch.bfloat16`` -> ``"bfloat16"``).
+
+The name and handle bookkeeping, the parser and the CRC run in the
+native runtime when it loads (``_native/csrc/table.cc`` and ``wire.cc``);
+the packer is Python on both paths, as in the JAX package, and writes the
+native packer's bytes, so a native rank and a pure-Python rank
+(``HVD_TPU_NATIVE=0``) agree on every fingerprint.
 """
 
+import ctypes
 import struct
 import threading
 import zlib
@@ -18,6 +25,7 @@ from typing import Dict, Optional
 
 import torch
 
+from ._native import get as _native_get
 from .exceptions import DuplicateNameError
 
 
@@ -43,26 +51,51 @@ class Handle:
 
 
 class TensorTable:
-    """Duplicate-name detection and handle allocation."""
+    """Duplicate-name detection and handle allocation. The Handle objects
+    always live on the Python side; the name and handle bookkeeping lives
+    in the native table when the library loads."""
 
     def __init__(self, world):
         self._world = world
         self._lock = threading.Lock()
         self._handles: Dict[int, Handle] = {}
+        nat = _native_get()
+        self._nat = nat
+        self._nat_table = nat.cdll.hvd_table_create() if nat else None
+        # pure-Python state
         self._in_flight: Dict[str, int] = {}
         self._next_handle = 0
+
+    def __del__(self):
+        # the one place the native table is freed: a thread still holding
+        # this table keeps it alive, so no call can reach a freed table
+        h, self._nat_table = getattr(self, "_nat_table", None), None
+        if h:
+            try:
+                self._nat.cdll.hvd_table_destroy(h)
+            except Exception:
+                pass
 
     def begin(self, name: str, kind: str) -> Handle:
         """Register an in-flight named op; raises DuplicateNameError when
         the name is already pending."""
-        with self._lock:
-            if name in self._in_flight:
+        if self._nat_table is not None:
+            hid = self._nat.cdll.hvd_table_begin(
+                self._nat_table, name.encode())
+            if hid < 0:
                 raise DuplicateNameError(self._dup_msg(kind, name))
-            hid = self._next_handle
-            self._next_handle += 1
-            h = Handle(hid, name)
-            self._in_flight[name] = hid
-            self._handles[hid] = h
+            h = Handle(int(hid), name)
+            with self._lock:
+                self._handles[h.id] = h
+        else:
+            with self._lock:
+                if name in self._in_flight:
+                    raise DuplicateNameError(self._dup_msg(kind, name))
+                hid = self._next_handle
+                self._next_handle += 1
+                h = Handle(hid, name)
+                self._in_flight[name] = hid
+                self._handles[hid] = h
         insp = self._world.stall_inspector
         if insp is not None:
             insp.record_submit(name)
@@ -75,9 +108,14 @@ class TensorTable:
                 f"want to request another tensor, pass a different name.")
 
     def finish(self, handle: Handle):
-        with self._lock:
-            self._in_flight.pop(handle.name, None)
-            self._handles.pop(handle.id, None)
+        if self._nat_table is not None:
+            self._nat.cdll.hvd_table_finish(self._nat_table, handle.id)
+            with self._lock:
+                self._handles.pop(handle.id, None)
+        else:
+            with self._lock:
+                self._in_flight.pop(handle.name, None)
+                self._handles.pop(handle.id, None)
         insp = self._world.stall_inspector
         if insp is not None:
             insp.record_done(handle.name)
@@ -90,6 +128,8 @@ class TensorTable:
         return h
 
     def pending_count(self) -> int:
+        if self._nat_table is not None:
+            return int(self._nat.cdll.hvd_table_pending(self._nat_table))
         with self._lock:
             return len(self._in_flight)
 
@@ -114,7 +154,10 @@ WIRE_VERSION = 1
 
 def pack_request(name: str, shape, dtype, kind: str, extra: str = "",
                  rank: int = 0) -> bytes:
-    """Serialize submission metadata."""
+    """Serialize submission metadata, in Python on both paths as in the
+    JAX package: byte for byte what the native packer
+    (``wire.cc hvd_wire_pack_request``) writes, so CRCs agree across
+    processes whichever runtime each one loaded."""
     nb = name.encode()
     db = dtype_str(dtype).encode()
     kb = kind.encode()
@@ -134,8 +177,28 @@ def pack_request(name: str, shape, dtype, kind: str, extra: str = "",
 
 
 def unpack_request(buf: bytes) -> dict:
-    """Parse a wire message back into its fields; any malformed or
-    truncated message raises ValueError."""
+    """Parse a wire message back into its fields (the native parser when
+    the library loads); any malformed or truncated message raises
+    ValueError."""
+    nat = _native_get()
+    if nat is not None:
+        name = ctypes.create_string_buffer(65536)
+        dtype = ctypes.create_string_buffer(256)
+        kind = ctypes.create_string_buffer(256)
+        extra = ctypes.create_string_buffer(65536)
+        shape = (ctypes.c_int64 * 255)()
+        ndim = ctypes.c_int32(255)
+        rank = ctypes.c_int32(0)
+        n = nat.cdll.hvd_wire_unpack_request(
+            buf, len(buf), name, len(name), shape, ctypes.byref(ndim),
+            dtype, len(dtype), kind, len(kind), extra, len(extra),
+            ctypes.byref(rank))
+        if n < 0:
+            raise ValueError("malformed wire message")
+        return {"name": name.value.decode(), "kind": kind.value.decode(),
+                "dtype": dtype.value.decode(), "extra": extra.value.decode(),
+                "shape": tuple(shape[i] for i in range(ndim.value)),
+                "rank": int(rank.value)}
     off = 0
 
     def take(fmt):
@@ -171,5 +234,11 @@ def unpack_request(buf: bytes) -> dict:
 def metadata_fingerprint(name: str, shape, dtype, kind: str,
                          extra: str = "") -> int:
     """32-bit fingerprint of a submission's metadata: CRC-32 of the wire
-    message with the rank left out, so every rank computes the same one."""
-    return zlib.crc32(pack_request(name, shape, dtype, kind, extra, rank=0))
+    message with the rank left out, so every rank computes the same one
+    (``hvd_crc32`` when the library loads, zlib's otherwise: the same
+    IEEE CRC-32)."""
+    msg = pack_request(name, shape, dtype, kind, extra, rank=0)
+    nat = _native_get()
+    if nat is not None:
+        return int(nat.cdll.hvd_crc32(msg, len(msg)))
+    return zlib.crc32(msg)

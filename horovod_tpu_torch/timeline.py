@@ -1,14 +1,22 @@
 """Chrome-tracing timeline of horovod_tpu_torch (counterpart of
-``horovod_tpu/timeline.py``, its Python path).
+``horovod_tpu/timeline.py``).
 
 The analogue of the reference Timeline (horovod/common/timeline.{h,cc}): a
-writer thread drains a bounded record queue and streams chrome://tracing
-JSON. The per-tensor state machine (timeline.h:77-99) is kept for the host
-side of every eager collective: the verb opens a top-level span on the
-tensor's lane when it is submitted (``ALLREDUCE``, ``GROUPED_ALLREDUCE``,
-...) and the dispatcher thread opens and closes the wire activity inside
-it. As in the JAX package, whose event sequence this one follows event
-for event, nothing closes the top-level span (ROADMAP C).
+writer thread drains a record queue and streams chrome://tracing JSON.
+When the native runtime loads, the writer thread, the timestamps and the
+formatting are C++ (``_native/csrc/timeline.cc``), as in the JAX
+package; under ``HVD_TPU_NATIVE=0`` :class:`RecordWriter` does the same
+job. Only RecordWriter bounds its queue (``HVD_TPU_TIMELINE_QUEUE_EVENTS``)
+and counts its drops (``hvd_tpu_timeline_dropped_total``): the native
+writer's queue is unbounded, so on the default path a disk slower than
+the emit rate costs memory, not records. The per-tensor state machine
+(timeline.h:77-99) is kept for the host side of every eager collective:
+the verb opens a top-level span on the tensor's lane when it is
+submitted (``ALLREDUCE``, ``GROUPED_ALLREDUCE``, ...) and the dispatcher
+thread opens and closes the wire activity inside it. The event sequence
+is the JAX package's, event for event, but for one thing: the port
+closes the top-level span after the wire activity, which the JAX package
+leaves open (ROADMAP C).
 
 Wire activities are named after the backend the call really took, as
 Horovod names its own (``NCCL_ALLREDUCE``, ``MPI_ALLREDUCE``, ...): the
@@ -28,6 +36,9 @@ device processes moved to ``pid + DEVICE_PID_OFFSET`` and every event
 shifted onto the timeline's clock through two ``record_function`` markers,
 one after the session starts and one before it stops, whose host times
 are bounded from below (the profiler's export has its own time base).
+The host times are read on the clock of the writer that stamps the file:
+the native writer's own (``hvd_tl_now_us``) or ``perf_counter`` from the
+Timeline's creation.
 
 Enable with ``HVD_TPU_TIMELINE=<file>`` (alias ``HOROVOD_TIMELINE``); only
 process 0 writes (reference: operations.cc:407-415).
@@ -42,6 +53,7 @@ from typing import Dict, Optional
 
 from . import config as _config
 from . import metrics as _metrics
+from ._native import get as _native_get
 
 # The observability layer observes itself: emission volume is how an
 # operator notices a timeline silently eating disk (or silently dead).
@@ -155,7 +167,10 @@ class RecordWriter:
 
 class Timeline:
     """Thread-safe chrome-tracing writer; every public method is cheap
-    once closed."""
+    once closed. When the native runtime loads, formatting, timestamps and
+    the writer thread live in C++ and this class maps the per-tensor state
+    machine onto native emit calls; otherwise :class:`RecordWriter` is the
+    writer."""
 
     def __init__(self, path: str, mark_cycles: bool = False):
         self._path = path
@@ -165,7 +180,17 @@ class Timeline:
         self._lock = threading.Lock()
         self._t0 = time.perf_counter()
         self._closed = False
-        self._w = RecordWriter(path, mode="chrome")
+        self._nat = _native_get()
+        self._h = None
+        # serializes native calls against close(), which frees the C++
+        # object: no emitter may be inside a call on it then
+        self._native_lock = threading.Lock()
+        if self._nat is not None:
+            self._h = self._nat.cdll.hvd_tl_create(path.encode())
+        self._w = None
+        if self._h is None:
+            self._nat = None
+            self._w = RecordWriter(path, mode="chrome")
         self._profiler = None
         #: (exported profiler trace, {marker name: host time in us at
         #: which it was about to be entered})
@@ -176,9 +201,20 @@ class Timeline:
         return not self._closed
 
     def _now_us(self) -> float:
+        """Microseconds on the clock that stamps this file's events."""
+        if self._h is not None:
+            with self._native_lock:
+                if self._h is not None:
+                    return float(self._nat.cdll.hvd_tl_now_us(self._h))
         return (time.perf_counter() - self._t0) * 1e6
 
     def _tid(self, tensor_name: str) -> int:
+        if self._h is not None:
+            with self._native_lock:
+                if self._h is None:
+                    return 0
+                return int(self._nat.cdll.hvd_tl_tid(
+                    self._h, tensor_name.encode()))
         with self._lock:
             tid = self._tids.get(tensor_name)
             if tid is None:
@@ -189,11 +225,21 @@ class Timeline:
                              "tid": tid, "args": {"name": tensor_name}})
             return tid
 
-    def _emit(self, name, ph, tensor_name, args=None):
+    def _emit(self, name, ph, tensor_name, args=None, tid=None):
         if self._closed:
             return
         _M_TL_EVENTS.inc()
-        ev = {"name": name, "ph": ph, "pid": 0, "tid": self._tid(tensor_name),
+        if tid is None:
+            tid = self._tid(tensor_name)
+        if self._h is not None:
+            with self._native_lock:
+                if self._h is None:
+                    return
+                self._nat.cdll.hvd_tl_emit(
+                    self._h, name.encode(), ph.encode(), tid,
+                    json.dumps(args).encode() if args else None)
+            return
+        ev = {"name": name, "ph": ph, "pid": 0, "tid": tid,
               "ts": self._now_us()}
         if args:
             ev["args"] = args
@@ -224,10 +270,14 @@ class Timeline:
         self.activity_end(tensor_name)
 
     def mark_cycle(self):
-        if self._mark_cycles and not self._closed:
-            _M_TL_EVENTS.inc()
-            self._w.put({"name": "CYCLE", "ph": "i", "pid": 0, "tid": 0,
-                         "ts": self._now_us(), "s": "g"})
+        if not self._mark_cycles or self._closed:
+            return
+        if self._h is not None:
+            self._emit("CYCLE", "i", None, tid=0)
+            return
+        _M_TL_EVENTS.inc()
+        self._w.put({"name": "CYCLE", "ph": "i", "pid": 0, "tid": 0,
+                     "ts": self._now_us(), "s": "g"})
 
     # -- device side: splice in a torch.profiler session ---------------------
     def _enter_marker(self, name: str) -> float:
@@ -286,7 +336,11 @@ class Timeline:
         self._closed = True
         if self._profiler is not None:
             self.stop_torch_trace()
-        if not self._w.close(timeout=10):
+        if self._h is not None:
+            with self._native_lock:
+                h, self._h = self._h, None
+            self._nat.cdll.hvd_tl_close(h)   # drains and joins the writer
+        elif not self._w.close(timeout=10):
             # a backlogged writer still owns the file handle; splicing
             # would interleave two writers into an unparseable trace:
             # keep the host-only file intact instead

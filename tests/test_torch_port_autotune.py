@@ -1,7 +1,7 @@
 """The port's fusion-threshold autotuner (``horovod_tpu_torch.
 parameter_manager``, fed by ``DistributedOptimizer``) against the JAX
-package's ``ParameterManager`` on its Python-optimizer path (the JAX
-package at ``HVD_TPU_NATIVE=0``; the port has no native optimizer).
+package's ``ParameterManager``, both on their Python-optimizer path (the
+path of ``HVD_TPU_NATIVE=0``) and both on their native GP/BO.
 
 Bit for bit: the schedule (warmup, samples, the knob lock, the
 ``PACK_CUTOFF`` phase, the end) and every threshold the two propose for
@@ -101,12 +101,7 @@ def _strip_time(log: str):
     return [re.sub(r"^\S+ \S+ ", "", line) for line in log.splitlines()]
 
 
-@pytest.fixture
-def tuned_worlds(tmp_path, monkeypatch):
-    """A JAX world on its Python optimizer and a port world (gloo), both
-    autotuning with the same small sample settings."""
-    monkeypatch.setenv("HVD_TPU_NATIVE", "0")
-    monkeypatch.setattr(jpm, "_native_get", lambda: None)
+def _tuned_worlds(tmp_path):
     if jhvd.is_initialized():
         jhvd.shutdown()
     jhvd.init(config_overrides=dict(
@@ -120,14 +115,33 @@ def tuned_worlds(tmp_path, monkeypatch):
         jhvd.shutdown()
 
 
-@pytest.mark.parametrize("scores", ["rising", "falling", "zigzag"])
-def test_schedule_and_thresholds_match_jax(tuned_worlds, scores):
+@pytest.fixture
+def tuned_worlds(tmp_path, monkeypatch):
+    """A JAX world and a port world (gloo), both on their Python
+    optimizer (the path of HVD_TPU_NATIVE=0), autotuning with the same
+    small sample settings."""
+    monkeypatch.setattr(jpm, "_native_get", lambda: None)
+    monkeypatch.setattr(tpm, "_native_get", lambda: None)
+    yield from _tuned_worlds(tmp_path)
+
+
+@pytest.fixture
+def native_tuned_worlds(tmp_path):
+    """The same two worlds, both on their native GP/BO."""
+    if tpm._native_get() is None or jpm._native_get() is None:
+        pytest.skip("no C++ compiler: no native runtime to compare")
+    yield from _tuned_worlds(tmp_path)
+
+
+SECONDS = {"rising": lambda i: 0.02 - 0.0005 * i,
+           "falling": lambda i: 0.01 + 0.0005 * i,
+           "zigzag": lambda i: 0.01 + 0.003 * (i % 3)}
+
+
+def _schedules_match(tmp_path, seconds, optimizer):
     jm = jbasics.world().parameter_manager
     tm = hvd.basics.world().parameter_manager
-    assert isinstance(jm._opt, jpm._PythonFallbackOptimizer)
-    seconds = {"rising": lambda i: 0.02 - 0.0005 * i,
-               "falling": lambda i: 0.01 + 0.0005 * i,
-               "zigzag": lambda i: 0.01 + 0.003 * (i % 3)}[scores]
+    assert type(jm._opt).__name__ == type(tm._opt).__name__ == optimizer
     trace = {"jax": [], "torch": []}
     for i in range(26):
         for name, m in (("jax", jm), ("torch", tm)):
@@ -142,9 +156,24 @@ def test_schedule_and_thresholds_match_jax(tuned_worlds, scores):
         jbasics.world().config.get(jconfig.FUSION_THRESHOLD)
     assert w.config.get(tconfig.PACK_CUTOFF) == \
         jbasics.world().config.get(jconfig.PACK_CUTOFF)
-    jlog = _strip_time((tuned_worlds / "jax.log").read_text())
-    tlog = _strip_time((tuned_worlds / "torch.log").read_text())
+    jlog = _strip_time((tmp_path / "jax.log").read_text())
+    tlog = _strip_time((tmp_path / "torch.log").read_text())
     assert tlog == jlog and any("tuning complete" in x for x in tlog)
+
+
+@pytest.mark.parametrize("scores", ["rising", "falling", "zigzag"])
+def test_schedule_and_thresholds_match_jax(tuned_worlds, scores):
+    _schedules_match(tuned_worlds, SECONDS[scores],
+                     "_PythonFallbackOptimizer")
+
+
+@pytest.mark.parametrize("scores", ["rising", "falling", "zigzag"])
+def test_native_schedule_and_thresholds_match_jax_native(
+        native_tuned_worlds, scores):
+    """Native against native: the port's GP/BO proposes, bit for bit, the
+    thresholds the JAX package's proposes for the same scores."""
+    _schedules_match(native_tuned_worlds, SECONDS[scores],
+                     "_NativeOptimizer")
 
 
 def test_fallback_optimizer_matches_jax():

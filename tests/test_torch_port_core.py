@@ -207,6 +207,33 @@ def test_init_twice_and_shutdown_twice():
         hvd.rank()
 
 
+def test_init_of_one_chooses_another_port_when_its_port_is_taken(
+        monkeypatch):
+    """A world of one picks its store's port itself: a port another
+    socket took before the store listened (EADDRINUSE) is chosen again."""
+    from horovod_tpu_torch import basics
+    taken = socket.socket()
+    taken.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    taken.bind(("0.0.0.0", 0))
+    taken.listen()
+    ports = [taken.getsockname()[1]]
+    real = basics._free_port
+
+    def chosen():
+        ports.append(real())
+        return ports[-2] if len(ports) == 2 else ports[-1]
+    monkeypatch.setattr(basics, "_free_port", chosen)
+    try:
+        hvd.init(device="cpu")
+        try:
+            assert len(ports) == 3      # the taken port, then a free one
+            assert int(hvd.allreduce(torch.ones(2), op=hvd.Sum)[0]) == 1
+        finally:
+            hvd.shutdown()
+    finally:
+        taken.close()
+
+
 def test_init_refuses_a_foreign_process_group():
     import torch.distributed as dist
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:"

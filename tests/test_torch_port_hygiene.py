@@ -115,6 +115,52 @@ def test_launcher_and_elastic_import_with_jax_blocked(tmp_path):
     assert "horovod_tpu_torch v" in r.stdout and "PyTorch" in r.stdout
 
 
+def test_native_runtime_stands_alone(tmp_path):
+    """The port's native runtime (``_native/``) imports with jax and the
+    JAX package blocked, builds from its own sources, and a port world
+    that drives every consumer maps the port's library and never the JAX
+    package's ``horovod_tpu/_native/_libhvdtpu.so``."""
+    assert os.path.isdir(os.path.join(PKG, "_native", "csrc"))
+    code = (
+        "import sys\n"
+        f"for m in {sorted(FORBIDDEN)!r}:\n"
+        "    sys.modules[m] = None\n"
+        "import os, torch\n"
+        "import horovod_tpu_torch as hvd\n"
+        "from horovod_tpu_torch import _native, timeline\n"
+        "from horovod_tpu_torch._native import build\n"
+        "assert build.CSRC.startswith(os.path.dirname(_native.__file__))\n"
+        "hvd.init(device='cpu')\n"
+        "hvd.allreduce(torch.ones(4), name='x')\n"
+        "tl = timeline.Timeline(sys.argv[1]); tl.start('x', 'allreduce')\n"
+        "tl.close()\n"
+        "hvd.shutdown()\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "print(_native.available(), _native.path)\n"
+        "assert 'horovod_tpu/_native' not in maps\n"
+        "if _native.available():\n"
+        "    assert _native.path in maps\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", code,
+                        str(tmp_path / "tl.json")],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert "torch_native" in r.stdout or r.stdout.startswith("False")
+
+
+def test_check_build_prints_the_native_core_rows():
+    from horovod_tpu_torch import _native
+    from horovod_tpu_torch.runner import launch
+    out = launch.check_build()
+    mark = "X" if _native.available() else " "
+    assert "Native Core (C++):" in out
+    assert f"    [{mark}] tensor table / fusion planner / response cache " \
+        "/ wire" in out
+    assert f"    [{mark}] timeline writer / stall tracker / GP-BO " \
+        "autotuner" in out
+
+
 def test_cnn_zoo_and_benchmark_import_with_jax_blocked():
     code = (
         "import sys\n"
@@ -315,9 +361,14 @@ def test_prefetch_and_guard_paths_catch_nothing():
                     if isinstance(n, ast.Try)], rel
 
 
-def test_autotune_flag_is_no_longer_a_silent_no_op():
+def test_autotune_flag_is_no_longer_a_silent_no_op(monkeypatch):
     """``--autotune`` reaches a ParameterManager that the optimizer
-    feeds, and the threshold it adopts re-plans the buckets."""
+    feeds, and the threshold it adopts re-plans the buckets. The tuner is
+    pinned to its Python optimizer, whose first proposals (a grid) do not
+    depend on the measured times; test_torch_port_native holds the native
+    GP/BO's first proposal on this path."""
+    from horovod_tpu_torch import parameter_manager
+    monkeypatch.setattr(parameter_manager, "_native_get", lambda: None)
     from horovod_tpu_torch.runner import config_parser, launch
     args = launch.parse_args(["--autotune", "python", "x.py"])
     env = config_parser.set_env_from_args({}, args)
