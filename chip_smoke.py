@@ -50,6 +50,25 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
    are reset just before the full-width steps and read just after. Then
    the same full-width steps with the model's default attention, whose
    losses the flash path's must track.
+7a. compiled: the compiled step, make_transformer_train_step(cfg,
+   compiled=True), on the train phase's seeds, weights (broadcast as
+   there) and data, NCCL at size 1: two regions compiled by torch.compile
+   (inductor, fullgraph=True, so a graph break raises): the forward and
+   loss with the flash kernel as the custom op hvd_tpu::flash_fwd, then
+   the compiled backward, then the gradients reduced in the graph (the
+   in-jit grouped allreduce, one _c10d_functional all-reduce per packed
+   bucket), then the inner AdamW's eager step. One compile step, then
+   TRAIN_STEPS steps. It fails unless each region compiled one graph (12
+   flash ops in the forward, one all-reduce per fusion.packed_plan bucket
+   in the reduction), no eager collective ran (COUNTS and
+   hvd_tpu_collective_ops_total flat) while
+   hvd_tpu_injit_lowerings_total{op="grouped_allreduce"} moved by one,
+   the kernel launched 12 times a step, and the losses track the train
+   phase's (step 1 within TOL_COMPILED_FIRST relative, later steps
+   TOL_COMPILED_LATER). Prints the compile step's seconds, the steady ms
+   a step and tokens/s beside the train phase's, peak memory, the
+   nvidia-smi line and, in a second line, one more step timed by region.
+   Inductor's and Triton's caches go under build/.
 8. checkpoint: the trained bundle's state (444.5 MB of parameters, 889 MB
    of AdamW state) saved through the port's CheckpointManager under
    build/, once synchronously and once asynchronously; 2 more steps,
@@ -253,7 +272,9 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
    above one process: gloo over CPU tensors, since NCCL puts no two
    ranks on one card) are left out here: they do no work on the card.
    eager_2proc's line says so; the CPU tests and the module's own driver
-   run them. Prints the phase's seconds.
+   run them. eager_1proc's injit_reduce_s must be a compiled
+   hvd.allreduce's (one in-graph lowering a payload size). Prints the
+   phase's seconds.
 19. frontends (runs before microbench, in a world of its own): first a
    line naming which of tensorflow, keras, pandas and pyarrow this
    machine has (their installed versions, or null). (a) Always: ``import
@@ -985,6 +1006,128 @@ def train_default_reference(torch, cfg, tokens, targets, flash_losses):
     if not ok:
         raise AssertionError("full-width flash losses disagree with the "
                              "default attention's")
+
+
+# the compiled step against the eager train phase: inductor fuses and
+# reorders the bf16 and fp32 reductions, so step 1's loss is held to a
+# relative TOL_COMPILED_FIRST; from step 2 AdamW carries the difference
+# forward, as between the flash and the default attention (TOL_FULL_LOSS_*).
+# Four card runs read at most 3.3e-6 at step 1, so its bound is 30x that;
+# the later steps read up to 1.4e-3 by step 4 (PERF.md, section 6), growing
+# with each AdamW step, so they keep 1e-2, 1% of the loss as between the
+# two attentions.
+TOL_COMPILED_FIRST = 1e-4
+TOL_COMPILED_LATER = 1e-2
+
+
+def compiled_phase(torch, hvd, fa, collectives, cfg, tokens, targets,
+                   train_losses, train_ms):
+    """Phase 7a of the module docstring: the compiled step
+    (make_transformer_train_step(compiled=True), inductor) at full width on
+    the train phase's seeds, weights and data. Returns the flash launches
+    of its TRAIN_STEPS steps."""
+    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch.fusion import packed_plan
+    from horovod_tpu_torch.config import INJIT_PACKED_THRESHOLD
+    from horovod_tpu_torch.parallel import make_transformer_train_step
+    torch.cuda.empty_cache()
+    bundle = make_transformer_train_step(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+        compiled=True)
+    hvd.broadcast_parameters(bundle.model.state_dict(), root_rank=0)
+    params = list(bundle.model.parameters())
+    buckets = len(packed_plan(
+        [tuple(p.shape) for p in params], [p.dtype for p in params],
+        hvd.basics.world().config.get(INJIT_PACKED_THRESHOLD)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    grouped = 'hvd_tpu_injit_lowerings_total{op="grouped_allreduce"}'
+
+    def ops_total(snap):
+        return sum(v for k, v in snap.items()
+                   if k.startswith("hvd_tpu_collective_ops_total"))
+    before = metrics.snapshot()
+    collectives.COUNTS["allreduce"] = 0
+    fa.LAUNCHES["flash_fwd"] = 0
+    t0 = time.perf_counter()
+    losses = [bundle.step(tokens, targets).item()]
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    compile_launches = fa.LAUNCHES["flash_fwd"]
+
+    fa.LAUNCHES["flash_fwd"] = 0
+    seconds = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(bundle.step(tokens, targets).item())
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    launches = fa.LAUNCHES["flash_fwd"]
+    after = metrics.snapshot()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    regions = [(g["region"], g["flash_ops"], g["all_reduces"])
+               for g in bundle.compile_log]
+    step_s = sum(seconds) / len(seconds)
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, train_losses)]
+    tols = [TOL_COMPILED_FIRST] + [TOL_COMPILED_LATER] * (len(rel) - 1)
+    checks = {
+        "one_graph_a_region": regions == [
+            ("forward", cfg.num_layers, 0), ("reduce", 0, buckets)],
+        "no_eager_dispatch": collectives.COUNTS["allreduce"] == 0
+            and ops_total(after) == ops_total(before),
+        "one_lowering_a_compilation":
+            after.get(grouped, 0) - before.get(grouped, 0) == 1,
+        "flash_12_a_step": launches == cfg.num_layers * TRAIN_STEPS
+            and compile_launches == cfg.num_layers,
+        "losses_track_train": all(r <= t for r, t in zip(rel, tols)),
+        "finite": all(math.isfinite(x) for x in losses),
+    }
+    result = {
+        "phase": "compiled", "backend": "inductor", "steps": TRAIN_STEPS,
+        "compile_step_seconds": compile_s, "losses": losses,
+        "train_losses": train_losses, "rel_diff": rel, "tol": tols,
+        "graphs": bundle.compile_log, "packed_buckets": buckets,
+        "step_seconds": seconds, "ms_per_step_steady": 1e3 * step_s,
+        "tokens_per_s_steady": BATCH * cfg.max_seq_len / step_s,
+        "train_ms_per_step": train_ms,
+        "train_tokens_per_s": BATCH * cfg.max_seq_len / (train_ms / 1e3),
+        "peak_memory_gib": peak, "flash_launches": launches,
+        "flash_launches_compile_step": compile_launches,
+        "allreduce_launches": collectives.COUNTS["allreduce"],
+        "nvidia_smi": nvidia_smi_line(), "checks": checks,
+        "ok": all(checks.values())}
+    emit(result)
+    compiled_breakdown(torch, bundle, tokens, targets)
+    if not result["ok"]:
+        raise AssertionError(f"compiled phase failed: {checks}")
+    del bundle
+    torch.cuda.empty_cache()
+    return launches
+
+
+def compiled_breakdown(torch, bundle, tokens, targets):
+    """One more compiled step, timed by region with CUDA events: the
+    compiled forward and loss, the compiled backward, the in-graph
+    reduction, and the inner AdamW's eager step."""
+    forward, reduce = bundle.regions
+    opt = bundle.optimizer
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    opt.zero_grad(set_to_none=True)
+    ev[0].record()
+    loss = forward(tokens, targets, 0)
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    reduce()
+    ev[3].record()
+    opt._opt.step()
+    ev[4].record()
+    torch.cuda.synchronize()
+    emit({"phase": "compiled_breakdown",
+          "forward_and_loss_ms": ev[0].elapsed_time(ev[1]),
+          "backward_ms": ev[1].elapsed_time(ev[2]),
+          "reduce_ms": ev[2].elapsed_time(ev[3]),
+          "adamw_ms": ev[3].elapsed_time(ev[4])})
 
 
 def checkpoint_phase(torch, bundle, tokens, targets):
@@ -4063,9 +4206,10 @@ def microbench_phase(torch):
     """The port's microbenchmarks, --quick, on the card (module
     docstring, phase 18): one line per section; each section's own
     assertions raise."""
-    from horovod_tpu_torch import microbench
+    from horovod_tpu_torch import metrics, microbench
     t0 = time.perf_counter()
     lines = {}
+    lowered = 'hvd_tpu_injit_lowerings_total{op="allreduce"}'
     for name in microbench.SECTIONS:
         if name == "eager_2proc":
             # a gloo world of two CPU processes: no work on the card
@@ -4073,10 +4217,13 @@ def microbench_phase(torch):
                   "left_out": "a world of CPU processes, not the card's"})
             continue
         t = time.perf_counter()
+        before = metrics.snapshot().get(lowered, 0.0)
         lines[name] = {"phase": "microbench", "section": name,
                        **microbench.run_section(name, True, "cuda",
                                                 cpu_worlds=False),
-                       "seconds": time.perf_counter() - t}
+                       "seconds": time.perf_counter() - t,
+                       "injit_lowerings":
+                           metrics.snapshot().get(lowered, 0.0) - before}
         emit(lines[name])
     gen = lines["generation"]["result"]
     fo = lines["failover"]["result"]
@@ -4089,6 +4236,12 @@ def microbench_phase(torch):
         "disagg_warm_repeat_zero_bytes":
             dg["pooled"]["warm_repeat_transfer_bytes"] == 0,
         "eager_on_card": lines["eager_1proc"]["device"] == "cuda",
+        # injit_reduce_s timed a compiled hvd.allreduce: one in-graph
+        # lowering a payload size
+        "injit_reduce_compiled": lines["eager_1proc"]["injit_lowerings"]
+            == len(lines["eager_1proc"]["result"]["rows"])
+            and all(r["injit_reduce_s"] > 0
+                    for r in lines["eager_1proc"]["result"]["rows"]),
     }
     result = {"phase": "microbench", "mode": "quick",
               "seconds": time.perf_counter() - t0, "checks": checks,
@@ -4139,6 +4292,11 @@ def main() -> int:
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.models import TransformerConfig
 
+    # the compiled phase's inductor and Triton caches stay in the checkout
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                          os.path.join(build, "torchinductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(build, "triton"))
     # fp32 products in full fp32 on the card, for the comparisons
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4172,6 +4330,8 @@ def main() -> int:
     row["launches"], losses, bundle, train_ms = train_main_path(
         torch, hvd, fa, collectives, cfg, tokens, targets)
     train_default_reference(torch, cfg, tokens, targets, losses)
+    compiled_launches = compiled_phase(torch, hvd, fa, collectives, cfg,
+                                       tokens, targets, losses, train_ms)
     checkpoint_phase(torch, bundle, tokens, targets)
     cnn_phase(torch)
     serving_launches, serving_rows = serving_phase(torch, fa, cfg, bundle,
@@ -4196,6 +4356,7 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{**{key: row[key] for key in keys},
                        "launches_by_path": {"train": row["launches"],
+                                            "compiled": compiled_launches,
                                             "ring": ring_launches,
                                             "tensor_parallel": tp_launches,
                                             **elastic_launches,

@@ -38,6 +38,7 @@ is not ported.
 import dataclasses
 import datetime
 import socket
+import sys
 import threading
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -262,7 +263,8 @@ def mark_failed() -> None:
 def shutdown() -> None:
     """Stop the dispatcher thread and the stall inspector and tear down
     the process groups: destroyed, or on NCCL aborted when a wire call
-    failed. Safe to call twice; init() may be called again after it."""
+    failed, and drop torch.compile's compiled graphs. Safe to call twice;
+    init() may be called again after it."""
     global _world
     with _lock:
         w = _world
@@ -280,6 +282,12 @@ def shutdown() -> None:
         w.metrics_server = None
         _M_SHUTDOWNS.inc()
         _world = None
+        # a compiled graph holds this world's group, size, rank and config
+        # as constants (collectives' in-jit route), unguarded: drop every
+        # compiled graph, so that a call after the next init() traces
+        # again against that world
+        if "torch._dynamo" in sys.modules:
+            torch.compiler.reset()
         if w.failed and w.backend == "nccl":
             from torch.distributed import distributed_c10d
             distributed_c10d._abort_process_group()
@@ -346,6 +354,38 @@ def local_device_count() -> int:
 def dp_size() -> int:
     """Data-parallel width: one device per process, so the world size."""
     return world().size
+
+
+def current_mesh():
+    """The ``torch.distributed`` DeviceMesh entered last (``with
+    mesh:``), or None. Read in a function that ``torch.compile`` traces,
+    it becomes part of the compiled graph's guards, so the same function
+    under another mesh compiles anew."""
+    from torch.distributed.device_mesh import _mesh_resources
+    stack = _mesh_resources.mesh_stack
+    return stack[-1] if stack else None
+
+
+def mapped_axis_sizes() -> dict:
+    """``{dim name: size}`` of the DeviceMesh in scope (``with mesh:``)
+    while ``torch.compile`` traces, outermost dim first: the counterpart
+    of the JAX package's mapped axes of a ``shard_map`` trace, which the
+    in-jit route of the collective verbs (collectives.py) lowers over.
+    Empty when called eagerly or with no mesh in scope; dims without a
+    name are left out."""
+    if not torch.compiler.is_compiling():
+        return {}
+    mesh = current_mesh()
+    if mesh is None:
+        return {}
+    return {name: mesh.size(i)
+            for i, name in enumerate(mesh.mesh_dim_names or ())}
+
+
+def mapped_axes() -> tuple:
+    """Names of the mapped mesh dims in scope, outermost first (empty
+    eagerly or with no mesh in scope)."""
+    return tuple(mapped_axis_sizes())
 
 
 def is_homogeneous() -> bool:

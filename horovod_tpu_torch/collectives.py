@@ -52,10 +52,9 @@ Telemetry and chaos sites of the dispatch path, as in the JAX package:
   ``hvd_tpu_collective_dispatch_seconds`` by verb (pre-bound per verb at
   import, so the hot path pays plain increments),
   ``hvd_tpu_dispatcher_queue_depth`` and
-  ``hvd_tpu_consistency_checks_total`` by result. The JAX package's
-  ``hvd_tpu_injit_lowerings_total`` is left out: its in-jit route (a verb
-  called on tracers lowers to an XLA collective inside the compiled
-  program) has no torch counterpart;
+  ``hvd_tpu_consistency_checks_total`` by result, and
+  ``hvd_tpu_injit_lowerings_total`` by verb, which counts the in-jit
+  route's lowerings (see below) once per compilation;
 * **fault sites** (:mod:`.faults`): one ``collective.<verb>`` point per
   verb, fired at the top of the dispatched closure, before the
   consistency exchange, so an injected fault (or its retry) can never
@@ -71,9 +70,39 @@ Telemetry and chaos sites of the dispatch path, as in the JAX package:
   :mod:`.tracing`): every submission is recorded in the ledger
   (``HVD_TPU_SCHEDULE_CHECK``) and, when the submitting thread works for
   a sampled request, as a ``collective:<verb>:<name>`` span.
+
+**The in-jit route** (the JAX package's ``_injit_*``, its
+``docs/injit.md``): a verb called while ``torch.compile`` traces
+(``torch.compiler.is_compiling()``) lowers at trace time to the in-graph
+collectives of ``torch.distributed._functional_collectives`` over the
+DeviceMesh in scope (``with mesh:``; all its dims), and skips the
+dispatcher, the consistency exchange, the timeline, the fault sites and
+the ledger: every process runs the same compiled graph, which is the
+agreement the exchange exists to establish. Eager calls never take it.
+With no mesh in scope the route lowers over the world, so a compiled
+call equals the eager verb (the JAX package's plain jit uses size-1
+semantics there, because its arrays are global; a torch process holds
+its own tensor, and an identity would leave it unreduced). Sum and
+Average accumulate half types in fp32 and scale in the accumulation
+dtype; a grouped allreduce rides one collective per
+:func:`.fusion.packed_plan` bucket (``HVD_TPU_INJIT_PACKED_THRESHOLD``);
+Product gathers and multiplies; allgather is tiled (a 0-d input gives
+one row each); broadcast is the gather's ``root_rank`` row; alltoall
+takes even splits only. ``*_async`` returns a completed handle that
+``synchronize`` and ``poll`` accept in the graph and out of it.
+``HVD_TPU_INJIT_FASTPATH=0`` makes a traced call raise TypeError and
+``process_set=`` raises ValueError (a compiled graph lowers over the
+mesh in scope), both while the graph is traced, as the JAX package
+raises while it traces. allreduce keeps its gradient in the graph;
+allgather and broadcast of a tensor that requires grad raise
+NotImplementedError there (their gradients are queued). :func:`psum`,
+:func:`pmean`, :func:`all_gather_in_jit`, :func:`reduce_scatter_in_jit`,
+:func:`all_to_all_in_jit` and :func:`ppermute` are the named in-graph
+collectives over one dim of the mesh in scope.
 """
 
 import enum
+import functools
 import queue
 import threading
 import time
@@ -129,6 +158,15 @@ _M_CONSISTENCY = _metrics.counter(
 _M_CONSISTENCY_CACHED = _M_CONSISTENCY.labels(result="cached")
 _M_CONSISTENCY_EXCHANGED = _M_CONSISTENCY.labels(result="exchanged")
 _M_CONSISTENCY_FAILED = _M_CONSISTENCY.labels(result="failed")
+# Trace-time lowerings (the in-jit route): incremented while torch.compile
+# traces a verb, so this counts compilations, not steps; a steady compiled
+# loop leaves it and hvd_tpu_collective_ops_total flat. The help text is
+# the JAX package's.
+_M_INJIT = _metrics.counter(
+    "hvd_tpu_injit_lowerings_total",
+    "Collective verbs lowered in-trace to XLA collectives (counted per "
+    "compilation, not per step), by verb.", labels=("op",))
+_INJIT_METRICS = {kind: _M_INJIT.labels(op=kind) for kind in _VERBS}
 
 # Chaos sites (faults.py): one point per verb, fired at the top of the
 # dispatched closure. Without HVD_TPU_FAULT_SPEC they are single-branch
@@ -568,6 +606,365 @@ def _check_consistency(w, wm, name, shape, dtype, kind, extra=""):
 
 
 # ---------------------------------------------------------------------------
+# The in-jit route (see the module docstring; the JAX package's _injit_*,
+# horovod_tpu/collectives.py:1497-1721). Everything on it must trace
+# without a graph break: no lock, no dispatcher, no handle table. What
+# needs plain Python at trace time (the world's config, the group a
+# verb lowers over, the bucket plan, the counter, the errors) runs in
+# functions marked constant, which Dynamo calls once per trace and
+# whose results become constants of the graph, unguarded: so
+# basics.shutdown() drops every compiled graph, and a function called
+# again in the next world traces again.
+# ---------------------------------------------------------------------------
+
+_PASSING = {}
+
+
+def _passing(kind):
+    """``kind`` as an exception that torch.compile lets through as itself:
+    Dynamo re-raises an error from a traced function as its own
+    InternalTorchDynamoError, with the type in the message only, except a
+    few kinds, AssertionError among them. So the in-jit route raises a
+    subclass of both, which ``except kind`` catches as the JAX package's
+    trace-time error is caught."""
+    if kind not in _PASSING:
+        _PASSING[kind] = type(kind.__name__, (kind, AssertionError),
+                              {"__module__": __name__})
+    return _PASSING[kind]
+
+
+def _trace_constant(fn):
+    """``fn`` marked as ``torch.compiler.assume_constant_result`` marks it
+    (the attribute it sets), without importing ``torch._dynamo`` when this
+    module loads: while Dynamo traces, a call runs ``fn`` in Python and
+    its result is a constant of the graph; its arguments must be Python
+    constants (a DeviceMesh, ints, strings, dtypes, tuples of them). Its
+    TypeError, ValueError, NameError and NotImplementedError reach the
+    caller as themselves (:func:`_passing`)."""
+    @functools.wraps(fn)
+    def constant(*args):
+        try:
+            return fn(*args)
+        except (TypeError, ValueError, NameError,
+                NotImplementedError) as e:
+            if isinstance(e, AssertionError):
+                raise
+            raise _passing(type(e))(*e.args) from e
+    constant._dynamo_marked_constant = True
+    return constant
+
+
+def _functional():
+    import torch.distributed._functional_collectives as fc
+    return fc
+
+
+def _all_gather(x, dim: int, group):
+    """The in-graph all-gather along ``dim`` (``all_gather_single`` where
+    this torch has it: it deprecates ``all_gather_tensor``)."""
+    fc = _functional()
+    fn = getattr(fc, "all_gather_single", None) or fc.all_gather_tensor
+    return fn(x.contiguous(), dim, group)
+
+
+@_trace_constant
+def _trace_fail(kind, message: str):
+    """Raise ``kind(message)`` at trace time, as the JAX package raises
+    while it traces. A ``raise`` in traced code would end a compile with
+    ``fullgraph`` in Dynamo's Unsupported and make one without it fall
+    back to the eager verb."""
+    raise kind(message)
+
+
+@_trace_constant
+def _injit_scope(mesh, with_process_set: bool) -> tuple:
+    """``(group name, size, this process's index, mapped)`` of the group
+    a traced verb lowers over: the DeviceMesh in scope, all its dims
+    (``mapped``), or the world when there is none. Raises as the JAX
+    package's ``_injit_route`` does."""
+    w = _world()
+    if not w.config.get(_config.INJIT_FASTPATH):
+        raise TypeError(
+            "collective called while torch.compile traces, with the in-jit "
+            "fast path disabled (HVD_TPU_INJIT_FASTPATH=0). Eager "
+            "collectives cannot dispatch traced values; call the verb "
+            "outside the compiled function or re-enable the fast path.")
+    if with_process_set:
+        raise ValueError(
+            "process_set is an eager-plane concept; under torch.compile the "
+            "collective lowers over the DeviceMesh in scope: scope the "
+            "reduction with `with mesh:` (or the named in-graph "
+            "collectives) instead.")
+    if mesh is None:
+        group = dist.group.WORLD
+    elif mesh.ndim == 1:
+        group = mesh.get_group(0)
+    else:
+        if mesh.mesh.flatten().tolist() != list(range(w.size)):
+            raise ValueError(
+                f"a traced verb lowers over every dim of the mesh in scope "
+                f"{tuple(mesh.mesh_dim_names or ())}; a mesh of several "
+                f"dims must span the world in rank order for that. Reduce "
+                f"over one of its dims with psum/pmean(x, dim) instead.")
+        group = dist.group.WORLD
+    return (group.group_name, dist.get_world_size(group),
+            dist.get_rank(group), mesh is not None)
+
+
+@_trace_constant
+def _injit_axis(mesh, axis_name) -> tuple:
+    """``(group name, size, index)`` of the named dim(s) ``axis_name`` of
+    the DeviceMesh in scope (the named in-graph collectives)."""
+    names = tuple(axis_name) if isinstance(axis_name, (tuple, list)) \
+        else (axis_name,)
+    if mesh is None:
+        raise NameError(f"unbound axis name: {axis_name!r} (no DeviceMesh "
+                        f"in scope; enter one with `with mesh:`)")
+    dims = tuple(mesh.mesh_dim_names or ())
+    missing = [n for n in names if n not in dims]
+    if missing:
+        raise NameError(f"unbound axis name: {missing[0]!r} (the mesh in "
+                        f"scope has dims {dims})")
+    if len(names) == 1:
+        group = mesh.get_group(names[0])
+    else:
+        if names != dims:
+            raise ValueError(f"several axes {names} need every dim of the "
+                             f"mesh in scope, in its order {dims}")
+        return _injit_scope(mesh, False)[:3]
+    return (group.group_name, dist.get_world_size(group),
+            dist.get_rank(group))
+
+
+@_trace_constant
+def _injit_plan(shapes: tuple, dtypes: tuple) -> tuple:
+    """The packed bucket plan at the world's
+    ``HVD_TPU_INJIT_PACKED_THRESHOLD``."""
+    from .fusion import packed_plan
+    return packed_plan(shapes, dtypes,
+                       _world().config.get(_config.INJIT_PACKED_THRESHOLD))
+
+
+@_trace_constant
+def _injit_scale(op, nproc: int, prescale: float, postscale: float,
+                 dtype) -> float:
+    return _combined_scale(op, nproc, prescale, postscale, dtype)
+
+
+@_trace_constant
+def _injit_count(kind: str) -> bool:
+    """One lowering of verb ``kind``: called once per trace."""
+    _INJIT_METRICS[kind].inc()
+    return True
+
+
+# allgather's and broadcast's eager gradients read this process's row
+# offset from the data; in a graph they would break it
+_NO_GRAPH_GRADIENT = ("%s of a tensor that requires grad in a compiled graph "
+                      "is not lowered yet (ROADMAP A6): detach it, or call "
+                      "the verb outside torch.compile")
+
+
+class _InjitHandle:
+    """The handle of a verb lowered in a compiled graph: complete from the
+    start (there is nothing to wait for), so ``synchronize`` returns its
+    result, writing it into ``target`` for the in-place verbs."""
+
+    def __init__(self, result, target=None):
+        self.result = result
+        self.target = target
+
+    def land(self):
+        if self.target is None:
+            return self.result
+        with torch.no_grad():
+            self.target.copy_(self.result)
+        return self.target
+
+
+def _injit_route(process_set) -> Optional[tuple]:
+    """The scope (see :func:`_injit_scope`) when this call is traced by
+    torch.compile, else None: the eager dispatcher path."""
+    if not torch.compiler.is_compiling():
+        return None
+    return _injit_scope(_basics.current_mesh(), process_set is not None)
+
+
+def _as_tensor(t) -> torch.Tensor:
+    return t if isinstance(t, torch.Tensor) else torch.as_tensor(t)
+
+
+def _injit_all_reduce(xs, reduce_op: str, group) -> list:
+    fc = _functional()
+    if len(xs) == 1:
+        return [fc.all_reduce(xs[0].contiguous(), reduce_op, group)]
+    return fc.all_reduce_coalesced([x.contiguous() for x in xs], reduce_op,
+                                   group)
+
+
+def _injit_reduce_bucket(xs, op: ReduceOp, scale: float, group) -> list:
+    """One bucket of same-dtype members in one in-graph collective, with
+    the eager numerics: Sum and Average accumulate half types in fp32,
+    the scale applies in the accumulation dtype, the result casts back;
+    Product gathers the members and multiplies."""
+    if op in (ReduceOp.SUM, ReduceOp.AVERAGE):
+        accs = [x.float() if x.dtype in _HALF else x for x in xs]
+        rs = _injit_all_reduce(accs, "sum", group)
+        return [(r * scale if scale != 1.0 else r).to(x.dtype)
+                for x, r in zip(xs, rs)]
+    if op in (ReduceOp.MIN, ReduceOp.MAX):
+        return _injit_all_reduce(list(xs), op.value, group)
+    return [torch.prod(_all_gather(x.unsqueeze(0), 0, group), dim=0)
+            for x in xs]
+
+
+def _injit_allreduce(values, op: ReduceOp, prescale: float,
+                     postscale: float, scope) -> list:
+    """An allreduce of a member list lowered in the graph: same-dtype
+    members ride one collective per :func:`.fusion.packed_plan`
+    bucket."""
+    group, nproc = scope[0], scope[1]
+    if op == ReduceOp.ADASUM:
+        _trace_fail(NotImplementedError,
+                    "Adasum is not lowered in a compiled graph yet "
+                    "(ROADMAP A6); call the verb outside torch.compile")
+    vals = [_as_tensor(v) for v in values]
+    scales = {}
+    for v in vals:
+        if v.dtype not in scales:
+            scales[v.dtype] = _injit_scale(op, nproc, prescale, postscale,
+                                           v.dtype)
+    plan = _injit_plan(tuple(tuple(v.shape) for v in vals),
+                       tuple(dtype_str(v.dtype) for v in vals))
+    out = [None] * len(vals)
+    for _dt, idxs in plan:
+        rs = _injit_reduce_bucket([vals[i] for i in idxs], op,
+                                  scales[vals[idxs[0]].dtype], group)
+        for i, r in zip(idxs, rs):
+            out[i] = r
+    return out
+
+
+def _injit_allgather(x, scope) -> torch.Tensor:
+    x = _as_tensor(x)
+    rows = x.reshape(1) if x.dim() == 0 else x
+    return _all_gather(rows, 0, scope[0])
+
+
+def _injit_broadcast(x, root_rank: int, scope) -> torch.Tensor:
+    group, nproc, _, mapped = scope
+    if not 0 <= root_rank < nproc:
+        _trace_fail(ValueError, f"root_rank {root_rank} out of range for "
+                    + ("mapped axis size" if mapped else "world size")
+                    + f" {nproc}")
+    x = _as_tensor(x)
+    return _all_gather(x.unsqueeze(0), 0, group)[root_rank]
+
+
+def _injit_alltoall(x, splits, scope) -> torch.Tensor:
+    group, nproc = scope[0], scope[1]
+    x = _as_tensor(x)
+    if x.dim() == 0:
+        _trace_fail(ValueError,
+                    "alltoall needs a tensor with a first dimension")
+    if splits is not None:
+        splits = [int(s) for s in splits]
+        if len(set(splits)) > 1:
+            _trace_fail(ValueError,
+                        "in-jit alltoall supports uniform splits only "
+                        "(ragged splits are per-rank data, which a "
+                        "compiled SPMD program cannot express); use the "
+                        "eager verb for alltoallv.")
+        if len(splits) != nproc or sum(splits) != x.shape[0]:
+            _trace_fail(ValueError,
+                        "splits must have one entry per process and sum to "
+                        f"the tensor's first dimension: got {len(splits)} "
+                        f"entries summing to {sum(splits)} for first dim "
+                        f"{x.shape[0]} over mapped axis size {nproc}")
+    if x.shape[0] % nproc != 0:
+        _trace_fail(ValueError, f"alltoall tensor first dim {x.shape[0]} not "
+                    f"divisible by mapped axis size {nproc}")
+    return _functional().all_to_all_single(x.contiguous(), None, None, group)
+
+
+# -- the named in-graph collectives (horovod_tpu/collectives.py:1724-1759):
+#    over one dim (or every dim) of the DeviceMesh in scope, eager or traced
+
+def psum(x: torch.Tensor, axis_name) -> torch.Tensor:
+    """Sum over the mesh dim ``axis_name`` (``jax.lax.psum``)."""
+    group = _injit_axis(_basics.current_mesh(), axis_name)[0]
+    return _functional().all_reduce(x.contiguous(), "sum", group)
+
+
+def pmean(x: torch.Tensor, axis_name) -> torch.Tensor:
+    """Mean over the mesh dim ``axis_name`` (``jax.lax.pmean``: the sum
+    divided by the dim's size)."""
+    from .compression import true_divide
+    group, n, _ = _injit_axis(_basics.current_mesh(), axis_name)
+    return true_divide(_functional().all_reduce(x.contiguous(), "sum",
+                                                group), n)
+
+
+def all_gather_in_jit(x: torch.Tensor, axis_name, axis: int = 0,
+                      tiled: bool = True) -> torch.Tensor:
+    """Every member's ``x`` along ``axis``: concatenated (``tiled``) or
+    stacked on a new dim there (``jax.lax.all_gather``)."""
+    group = _injit_axis(_basics.current_mesh(), axis_name)[0]
+    axis = axis % (x.dim() + (0 if tiled else 1))
+    if not tiled:
+        x = x.unsqueeze(axis)
+    return _all_gather(x, axis, group)
+
+
+def reduce_scatter_in_jit(x: torch.Tensor, axis_name,
+                          scatter_dimension: int = 0) -> torch.Tensor:
+    """The sum over ``axis_name``, each member keeping its block along
+    ``scatter_dimension`` (``jax.lax.psum_scatter(tiled=True)``)."""
+    group = _injit_axis(_basics.current_mesh(), axis_name)[0]
+    fc = _functional()
+    fn = getattr(fc, "reduce_scatter_single", None) \
+        or fc.reduce_scatter_tensor
+    return fn(x.contiguous(), "sum", scatter_dimension % x.dim(), group)
+
+
+def all_to_all_in_jit(x: torch.Tensor, axis_name, split_axis: int,
+                      concat_axis: int) -> torch.Tensor:
+    """Block ``i`` of ``x`` along ``split_axis`` goes to member ``i``; the
+    blocks received are concatenated along ``concat_axis`` in member
+    order (``jax.lax.all_to_all(tiled=True)``)."""
+    group, n, _ = _injit_axis(_basics.current_mesh(), axis_name)
+    blocks = torch.stack(torch.chunk(x, n, dim=split_axis % x.dim()))
+    got = _functional().all_to_all_single(blocks.contiguous(), None, None,
+                                          group)
+    return torch.cat(list(got.unbind(0)), dim=concat_axis % x.dim())
+
+
+def ppermute(x: torch.Tensor, axis_name, perm) -> torch.Tensor:
+    """Member ``src`` sends ``x`` to member ``dst`` for each ``(src,
+    dst)`` pair of ``perm``; a member no pair sends to gets zeros
+    (``jax.lax.ppermute``). One ``all_to_all_single`` with this member's
+    split sizes (``permute_tensor`` takes whole permutations only)."""
+    group, n, me = _injit_axis(_basics.current_mesh(), axis_name)
+    pairs = [(int(s), int(d)) for s, d in perm]
+    send = [0] * n
+    recv = [0] * n
+    for s, d in pairs:
+        if s == me:
+            send[d] = x.numel()
+        if d == me:
+            recv[s] = x.numel()
+    flat = x.reshape(-1)
+    got = _functional().all_to_all_single(flat[:sum(send)].contiguous(),
+                                          recv, send, group)
+    if not any(recv):
+        # nothing arrives; still wait for the call, which this member's
+        # send rides on
+        _functional().wait_tensor(got)
+        return torch.zeros_like(x)
+    return got.reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
 # allreduce
 # ---------------------------------------------------------------------------
 
@@ -605,6 +1002,13 @@ def _reduce(w, wm, values, op, prescale, postscale) -> List[torch.Tensor]:
 def _allreduce_submit(tensors, grouped, average, name, op, prescale,
                       postscale, process_set) -> int:
     op = _resolve_op(average, op)
+    kind = "grouped_allreduce" if grouped else "allreduce"
+    scope = _injit_route(process_set)
+    if scope is not None:
+        outs = _injit_allreduce(list(tensors), op, prescale, postscale,
+                                scope)
+        _injit_count(kind)
+        return _InjitHandle(outs if grouped else outs[0])
     w = _world()
     wm = _mesh(w, process_set)
     ts = [_input(w, t) for t in tensors]
@@ -612,7 +1016,6 @@ def _allreduce_submit(tensors, grouped, average, name, op, prescale,
     # at the call site
     for dt in {t.dtype for t in ts}:
         _combined_scale(op, wm.num_procs, prescale, postscale, dt)
-    kind = "grouped_allreduce" if grouped else "allreduce"
     name = name or _auto_name(w, kind)
     h = w.tensor_table.begin(name, kind)
     shapes = tuple(tuple(t.shape) for t in ts)
@@ -725,8 +1128,7 @@ def allreduce_async_(tensor: torch.Tensor, average=None,
                           prescale_factor=prescale_factor,
                           postscale_factor=postscale_factor,
                           process_set=process_set)
-    _world().tensor_table.get(hid).target = tensor
-    return hid
+    return _set_target(hid, tensor)
 
 
 def allreduce_(tensor: torch.Tensor, average=None,
@@ -798,6 +1200,11 @@ def _allgather(w, wm, t: torch.Tensor) -> torch.Tensor:
 
 def allgather_async(tensor, name: Optional[str] = None,
                     process_set=None) -> int:
+    scope = _injit_route(process_set)
+    if scope is not None:
+        out = _injit_allgather(tensor, scope)
+        _injit_count("allgather")
+        return _InjitHandle(out)
     w = _world()
     wm = _mesh(w, process_set)
     t = _input(w, tensor)
@@ -858,6 +1265,8 @@ def allgather(tensor, name: Optional[str] = None,
     torch/mpi_ops.py:310-343). First dims may differ across processes;
     other dims must match. Differentiable like the reference."""
     if _differentiable(tensor):
+        if torch.compiler.is_compiling():
+            _trace_fail(NotImplementedError, _NO_GRAPH_GRADIENT % "allgather")
         return _AllgatherFn.apply(tensor, name, process_set)
     return synchronize(allgather_async(tensor, name=name,
                                        process_set=process_set))
@@ -890,6 +1299,11 @@ def _broadcast_flat(w, wm, tensors, root_rank) -> List[torch.Tensor]:
 
 def broadcast_async(tensor, root_rank: int, name: Optional[str] = None,
                     process_set=None) -> int:
+    scope = _injit_route(process_set)
+    if scope is not None:
+        out = _injit_broadcast(tensor, root_rank, scope)
+        _injit_count("broadcast")
+        return _InjitHandle(out)
     w = _world()
     wm = _mesh(w, process_set)
     _check_root(wm, root_rank)
@@ -946,6 +1360,8 @@ def broadcast(tensor, root_rank: int, name: Optional[str] = None,
     torch/mpi_ops.py:345-389); the input is left as it is.
     Differentiable like the reference."""
     if _differentiable(tensor):
+        if torch.compiler.is_compiling():
+            _trace_fail(NotImplementedError, _NO_GRAPH_GRADIENT % "broadcast")
         return _BroadcastFn.apply(tensor, root_rank, name, process_set)
     return synchronize(broadcast_async(tensor, root_rank, name=name,
                                        process_set=process_set))
@@ -958,8 +1374,7 @@ def broadcast_async_(tensor: torch.Tensor, root_rank: int,
     torch/mpi_ops.py broadcast_async_)."""
     hid = broadcast_async(tensor, root_rank, name=name,
                           process_set=process_set)
-    _world().tensor_table.get(hid).target = tensor
-    return hid
+    return _set_target(hid, tensor)
 
 
 def broadcast_(tensor: torch.Tensor, root_rank: int,
@@ -967,6 +1382,9 @@ def broadcast_(tensor: torch.Tensor, root_rank: int,
                process_set=None) -> torch.Tensor:
     """In-place broadcast from ``root_rank``; returns ``tensor``. It has
     no async form, so it runs through the dispatcher's ``run_sync``."""
+    if torch.compiler.is_compiling():
+        return synchronize(broadcast_async_(tensor, root_rank, name=name,
+                                            process_set=process_set))
     w = _world()
     wm = _mesh(w, process_set)
     _check_root(wm, root_rank)
@@ -1014,6 +1432,11 @@ def grouped_broadcast_async(tensors: Sequence, root_rank: int,
                             process_set=None) -> int:
     """One dispatcher job and one handle broadcasting a tensor list from
     ``root_rank``; ``synchronize`` returns the list in input order."""
+    scope = _injit_route(process_set)
+    if scope is not None:
+        outs = [_injit_broadcast(t, root_rank, scope) for t in tensors]
+        _injit_count("grouped_broadcast")
+        return _InjitHandle(outs)
     w = _world()
     wm = _mesh(w, process_set)
     _check_root(wm, root_rank)
@@ -1049,6 +1472,11 @@ def grouped_broadcast(tensors: Sequence, root_rank: int,
 
 def alltoall_async(tensor, splits=None, name: Optional[str] = None,
                    process_set=None) -> int:
+    scope = _injit_route(process_set)
+    if scope is not None:
+        out = _injit_alltoall(tensor, splits, scope)
+        _injit_count("alltoall")
+        return _InjitHandle(out)
     w = _world()
     wm = _mesh(w, process_set)
     nproc = wm.num_procs
@@ -1109,9 +1537,21 @@ def _wait(w, h: Handle) -> None:
         w.stall_inspector.check_shutdown()
 
 
+def _set_target(handle, tensor):
+    """Make ``handle``'s synchronize write its result into ``tensor``
+    (the in-place verbs); returns the handle."""
+    if isinstance(handle, _InjitHandle):
+        handle.target = tensor
+    else:
+        _world().tensor_table.get(handle).target = tensor
+    return handle
+
+
 def poll(handle: int) -> bool:
     """True when the collective behind ``handle`` has completed, on the
     device included (reference: torch/mpi_ops.py:476-485)."""
+    if isinstance(handle, _InjitHandle):
+        return True
     h = _world().tensor_table.get(handle)
     if not h.event.is_set():
         return False  # still queued or running on the dispatcher
@@ -1124,6 +1564,8 @@ def release(handle: int) -> None:
     """Drop a COMPLETED handle without consuming its result; an in-flight
     one is left alone (finishing it early would free its name for reuse
     while the dispatcher still runs it)."""
+    if isinstance(handle, _InjitHandle):
+        return
     w = _world()
     try:
         h = w.tensor_table.get(handle)
@@ -1139,6 +1581,8 @@ def synchronize(handle: int):
     torch/mpi_ops.py:487-499). On the card it returns once the caller's
     current stream is ordered after the result, without waiting for the
     device; the host wait for the dispatcher honours the stall deadline."""
+    if isinstance(handle, _InjitHandle):
+        return handle.land()
     w = _world()
     h = w.tensor_table.get(handle)
     try:

@@ -47,11 +47,23 @@ PACK_CUTOFF = _register(
          "buffer, so nothing here reads it; the autotuner "
          "(parameter_manager.py) still tunes it as its second phase, so "
          "its schedule is the JAX package's.")
+INJIT_FASTPATH = _register(
+    "INJIT_FASTPATH", True, _parse_bool,
+    help="Trace-aware collective lowering: an eager collective verb "
+         "(allreduce/grouped_allreduce/allgather/broadcast/alltoall) "
+         "called while torch.compile traces lowers directly to the "
+         "in-graph collective (torch.distributed._functional_collectives) "
+         "over the DeviceMesh in scope, or the world without one, instead "
+         "of round-tripping the host dispatcher (zero dispatcher hops, "
+         "zero host staging, no consistency exchange: the compiled graph "
+         "is the agreement). Set 0 to make a traced call a hard error "
+         "instead.")
 INJIT_PACKED_THRESHOLD = _register(
     "INJIT_PACKED_THRESHOLD", 64 * 1024 * 1024, int,
     help="Bucket cap in bytes for the packed buffers of the compiled-plane "
          "reduction (DistributedOptimizer(axis_name=..., "
-         "packing='packed')): gradients are concatenated per dtype into "
+         "packing='packed')) and of a grouped allreduce lowered in a "
+         "compiled graph: gradients are concatenated per dtype into "
          "flat buffers of at most this many bytes, one wire call per "
          "buffer. 0 packs each dtype into a single unbounded buffer.")
 RANK = _register("RANK", -1, int, alias="HOROVOD_RANK")

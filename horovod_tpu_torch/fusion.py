@@ -125,6 +125,12 @@ def packed_plan(shapes: Sequence[tuple], dtypes: Sequence[Any],
         int(threshold_bytes))
 
 
+# a pure function of its arguments: a constant of a compiled graph (what
+# torch.compiler.assume_constant_result marks, see
+# collectives._trace_constant), so torch.compile never traces the planner
+packed_plan._dynamo_marked_constant = True
+
+
 def packed_apply(leaves: Sequence[torch.Tensor], threshold_bytes: int,
                  reduce_bucket: Callable,
                  residuals: Optional[Sequence[torch.Tensor]] = None):

@@ -23,7 +23,9 @@ dims ("cross", "local") from ``cross_rank``/``cross_size`` and
 dim names. :func:`flat_group` is one group over the product of several
 dims (one collective over two axes at once), and :func:`group_allreduce`
 and :func:`group_allgather` are the compiled plane's wire calls, each run
-through ``collectives.run_in_order``.
+through ``collectives.run_in_order``; while ``torch.compile`` traces,
+:func:`group_allreduce` is the in-graph collective instead
+(``torch.distributed._functional_collectives``).
 """
 
 import math
@@ -138,12 +140,28 @@ def flat_group(mesh, dims: Sequence[str]):
     return w.groups[key]
 
 
+def group_size(group) -> int:
+    """``group``'s process count; a constant of a compiled graph."""
+    return dist.get_world_size(group)
+
+
+# a constant of a compiled graph (what torch.compiler.assume_constant_result
+# marks, see collectives._trace_constant)
+group_size._dynamo_marked_constant = True
+
+_FUNCTIONAL_OPS = {dist.ReduceOp.SUM: "sum", dist.ReduceOp.MIN: "min",
+                   dist.ReduceOp.MAX: "max"}
+
+
 def group_allreduce(tensors: Sequence[torch.Tensor], group,
                     op=dist.ReduceOp.SUM) -> List[torch.Tensor]:
     """``tensors`` (one dtype) reduced over ``group`` with ``op`` in ONE
     wire call on their concatenation (a new buffer; the inputs are not
-    written), split back into their shapes."""
-    from .collectives import run_in_order
+    written), split back into their shapes. While torch.compile traces,
+    one in-graph collective on the list instead."""
+    from .collectives import _injit_all_reduce, run_in_order
+    if torch.compiler.is_compiling():
+        return _injit_all_reduce(list(tensors), _FUNCTIONAL_OPS[op], group)
     if len(tensors) == 1:
         buf = tensors[0].detach().reshape(-1).clone()
     else:

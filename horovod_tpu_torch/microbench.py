@@ -5,17 +5,21 @@ same sections, the same result keys, on the card unless asked otherwise.
 * :func:`eager_sweep`: payload sweep (1 KB -> 256 MB) of the eager
   ``allreduce`` / ``grouped_allreduce`` verbs on device tensors: seconds,
   bytes/s, the async dispatch latency (time for ``allreduce_async`` to
-  return), and the ratio against a direct ``torch.distributed.all_reduce``
-  of a pre-staged tensor (``injit_reduce_s``, ``eager_over_injit``; the
-  JAX package compares with an in-jit reduction there). The gap is the
-  verbs' host overhead: dispatcher hand-off, fusion, consistency checks.
+  return), and the ratio against the in-jit reduction of the same payload
+  (``injit_reduce_s``, ``eager_over_injit``, as in the JAX package): a
+  function compiled with ``torch.compile`` whose ``hvd.allreduce`` lowers
+  to the in-graph collective (``collectives``' in-jit route). The gap is
+  the verbs' host overhead: dispatcher hand-off, fusion, consistency
+  checks.
 * :func:`bucketed_optimizer_sweep`: ResNet-50's 161 gradients, one
   allreduce each against the fusion planner's buckets.
 * :func:`injit_optimizer_sweep`: the compiled plane
   (``DistributedOptimizer(axis_name=...)``, ``_CompiledPlaneOptimizer``)
-  on the same gradients: per-leaf, packed, packed with bf16 on the wire,
-  packed with int8 and error feedback; the analytic ``wire_mb``. The
-  name is the JAX section's; there is no ``shard_map`` here.
+  on the same gradients, reducing eagerly: per-leaf, packed, packed with
+  bf16 on the wire, packed with int8 and error feedback; the analytic
+  ``wire_mb``. The name is the JAX section's, which times the reduction
+  inside ``shard_map``; the port's reduction in a compiled graph is
+  ``eager_sweep``'s ``injit_reduce_s`` and the compiled training step.
 * :func:`scaling_sweep_point`: one point of the data-parallel CNN step
   (``benchmark._Rig``) over the world.
 * generation: :func:`generation_sweep` (continuous batching against
@@ -45,8 +49,8 @@ unless ``--device cpu`` is given, and prints one JSON line per section
 ranks on one GPU, so ``eager_2proc`` and the scaling points above one
 process always run as gloo worlds over CPU tensors, and their lines say
 so (``"device": "cpu", "backend": "gloo"``): they are never the card's
-numbers. It never writes ``MICROBENCH.json``, which holds the
-JAX package's numbers.
+numbers. It never writes ``MICROBENCH.json``, which holds the JAX
+package's numbers.
 """
 
 import argparse
@@ -103,13 +107,21 @@ def _fence(dev: torch.device) -> None:
 # the collective plane
 # ---------------------------------------------------------------------------
 
+def _injit_sum(t):
+    """``hvd.allreduce`` of ``t`` as the in-jit route lowers it (called
+    compiled by :func:`eager_sweep`)."""
+    import horovod_tpu_torch as hvd
+    return hvd.allreduce(t, op=hvd.Sum)
+
+
 def eager_sweep(sizes: Sequence[int] = DEFAULT_SIZES, iters: int = 5,
-                group: int = 8) -> List[dict]:
+                group: int = 8,
+                compile_backend: str = "inductor") -> List[dict]:
     """Sweep the eager verbs over payload sizes. Must run inside an
     initialized world (any process count); every rank runs the same
-    sequence, and the results are the same on every rank."""
-    import torch.distributed as dist
-
+    sequence, and the results are the same on every rank. The in-jit
+    reduction compiles with ``compile_backend``, once per payload size
+    (outside the timed rounds)."""
     import horovod_tpu_torch as hvd
     from . import basics
 
@@ -136,12 +148,14 @@ def eager_sweep(sizes: Sequence[int] = DEFAULT_SIZES, iters: int = 5,
             hvd.grouped_allreduce(xs, op=hvd.Sum, name=f"mb_gar_{size}")
             _fence(dev)
 
-        # the same global payload, pre-staged, reduced by one direct wire
-        # call from this thread: the cost floor of the verb above
+        # the same global payload reduced in a compiled graph: the verb
+        # lowered to the in-graph collective, no dispatcher
+        injit = torch.compile(_injit_sum, fullgraph=True, dynamic=False,
+                              backend=compile_backend)
         staged = x.clone()
 
         def run_direct():
-            dist.all_reduce(staged)
+            injit(staged)
             _fence(dev)
 
         # the variants interleave round by round, so load swings hit

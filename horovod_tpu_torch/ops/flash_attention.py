@@ -21,6 +21,20 @@ sync.
 A query row that sees no key gives out = 0 and lse ~ -1e30 here whatever
 the tiling, where the TPU kernel's answer for such a row depends on its
 block_q (see the kernel's note); its gradient is 0.
+
+Under ``torch.compile`` the forward is the custom op ``hvd_tpu::flash_fwd``
+(:func:`flash_fwd_op`), which a compiled graph calls without a break (the
+ctypes launch cannot be traced): its body is :func:`_flash_fwd`, the kernel
+on a CUDA tensor (counting its launches at run time) and the plain version
+on a CPU one; its fake gives out like q and lse (BH, S_q) fp32; its
+gradient is :func:`flash_bwd_plain`, as the autograd Function's, as the
+operator ``hvd_tpu::flash_bwd`` (:func:`flash_bwd_op`). Integer
+offsets only (a sequence-parallel step, whose offsets are device tensors,
+stays eager). Eager calls go through :class:`FlashAttentionFunction` as
+before: it takes those tensor offsets, which the op's schema does not, so
+both wrappers stay until the op takes them (ROADMAP A5); then every call
+can go through the op, once its eager dispatch cost at the host-bound BH
+12 shapes has been measured.
 """
 
 import ctypes
@@ -262,6 +276,68 @@ def flash_bwd_plain(q, k, v, out, lse, g, g_lse, q_offset=0, k_offset=0,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+@torch.library.custom_op("hvd_tpu::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 q_offset: int, k_offset: int, causal: bool,
+                 sm_scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward as one operator of a compiled graph: (BH, S, D) q, k,
+    v -> out (BH, S_q, D) in q's dtype, lse (BH, S_q) fp32."""
+    # a compiled graph may hand over an input with other strides; the
+    # kernel takes contiguous (BH, S, D) tensors only
+    return _flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                      q_offset, k_offset, causal, sm_scale)
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, q_offset, k_offset, causal, sm_scale):
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty(q.shape[:2], dtype=torch.float32))
+
+
+def _flash_op_setup(ctx, inputs, output):
+    q, k, v, q_offset, k_offset, causal, sm_scale = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.offsets = (q_offset, k_offset)
+    ctx.causal = causal
+    ctx.sm_scale = sm_scale
+
+
+@torch.library.custom_op("hvd_tpu::flash_bwd", mutates_args=())
+def flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 out: torch.Tensor, lse: torch.Tensor, g: torch.Tensor,
+                 g_lse: torch.Tensor, q_offset: int, k_offset: int,
+                 causal: bool, sm_scale: float
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`flash_bwd_plain` as one operator of a compiled backward: the
+    compiler calls it and does not lower its blocks (8 key blocks a layer
+    at S 2048, which took most of inductor's 146 s compile of the full
+    model's backward on the card's host)."""
+    return flash_bwd_plain(q, k, v, out, lse, g, g_lse, q_offset, k_offset,
+                           causal=causal, sm_scale=sm_scale)
+
+
+@flash_bwd_op.register_fake
+def _flash_bwd_fake(q, k, v, out, lse, g, g_lse, q_offset, k_offset, causal,
+                    sm_scale):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _flash_op_backward(ctx, g, g_lse):
+    q, k, v, out, lse = ctx.saved_tensors
+    if g is None:
+        g = torch.zeros_like(out)
+    if g_lse is None:
+        g_lse = torch.zeros_like(lse)
+    dq, dk, dv = flash_bwd_op(q, k, v, out, lse, g, g_lse, *ctx.offsets,
+                              ctx.causal, ctx.sm_scale)
+    return dq, dk, dv, None, None, None, None
+
+
+flash_fwd_op.register_autograd(_flash_op_backward,
+                               setup_context=_flash_op_setup)
+
+
 class FlashAttentionFunction(torch.autograd.Function):
     """(BH, S, D) q, k, v -> (out, lse), both differentiable: ring
     attention merges partial results through lse, so its cotangent feeds
@@ -299,9 +375,14 @@ def flash_attention_with_lse(q, k, v, causal: bool = True,
         # at B = 1 the reshape is a strided view, and the kernel takes
         # contiguous (BH, S, D) tensors only
         return x.transpose(1, 2).reshape(B * H, x.shape[1], D).contiguous()
-    out, lse = FlashAttentionFunction.apply(
-        to_bh(q), to_bh(k), to_bh(v), q_offset, k_offset, bool(causal),
-        float(sm_scale))
+    if torch.compiler.is_compiling() and not isinstance(
+            q_offset, torch.Tensor) and not isinstance(k_offset, torch.Tensor):
+        out, lse = flash_fwd_op(to_bh(q), to_bh(k), to_bh(v), int(q_offset),
+                                int(k_offset), bool(causal), float(sm_scale))
+    else:
+        out, lse = FlashAttentionFunction.apply(
+            to_bh(q), to_bh(k), to_bh(v), q_offset, k_offset, bool(causal),
+            float(sm_scale))
     out = out.reshape(B, H, SQ, D).transpose(1, 2)
     lse = lse.reshape(B, H, SQ).transpose(1, 2)
     return out.to(out_dtype), lse

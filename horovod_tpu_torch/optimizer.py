@@ -62,6 +62,24 @@ runs at ``synchronize()``/``step()`` as one closure on the dispatcher
 thread (every wire call in one order, the same on every process, one
 hand-off a step). A parameter with no gradient contributes zeros and
 gets the reduced gradient, as every leaf of a JAX gradient tree does.
+
+**Under torch.compile** (``synchronize()``/``step()`` traced; the JAX
+package's reduction inside ``jit``, ``DistributedGradientTransform.
+_reduce_in_jit``) both planes reduce in the graph, once, with no
+dispatcher: the eager plane's every gradient (a missing one as zeros, so
+that every process traces the same collectives) through the in-jit
+grouped allreduce (``collectives``' in-jit route: packed buckets of
+``HVD_TPU_INJIT_PACKED_THRESHOLD``, one collective each, over the
+DeviceMesh in scope or the world), the compiled plane's over its mesh
+dims as above (hierarchical or flat, packed or per-leaf, the bf16 wire),
+and neither issues the Join marker or feeds the autotuner. Its hooks
+would reduce each gradient eagerly after a compiled backward too, so the
+eager plane refuses to reduce in a graph until :meth:`remove_hooks`.
+int8 with error feedback, Adasum and ``grad_process_sets`` raise
+NotImplementedError under compile (ROADMAP A5, A6). torch's own
+optimizers break the graph in ``step()`` (their ``_use_grad``), so a
+``fullgraph`` region compiles ``synchronize()`` and the inner optimizer
+steps outside it.
 """
 
 import time
@@ -79,6 +97,7 @@ from .fusion import flatten_bucket, packed_apply, plan_buckets
 _RESIDUAL = "error_feedback_residual"
 
 
+@_c._trace_constant
 def _packed_threshold() -> int:
     """Bucket cap of the packed buffers: the world's config when
     initialized (so programmatic overrides apply), the env/default
@@ -209,6 +228,9 @@ class DistributedOptimizer:
                 self._hooks.append(
                     p.register_post_accumulate_grad_hook(self._hook))
         self._hooked = hooked
+        #: whether the hooks are registered (a compiled graph cannot read
+        #: the handles in ``_hooks``)
+        self._hooks_on = bool(self._hooks)
         # one reduction (process set, scale) per bucket: without
         # grad_process_sets every gradient shares the world's
         self._reduction = {id(p): (None, 1.0) for p in hooked}
@@ -406,8 +428,46 @@ class DistributedOptimizer:
 
     def synchronize(self) -> None:
         """Fire partially ready buckets, wait for every bucket and write
-        the reduced gradients back."""
+        the reduced gradients back (under torch.compile: reduce every
+        gradient in the graph, see the module docstring)."""
+        if torch.compiler.is_compiling():
+            self._reduce_in_graph()
+            return
         self._flush_and_drain()
+
+    def _reduce_in_graph(self) -> None:
+        if self._hooks_on:
+            _c._trace_fail(
+                ValueError,
+                "DistributedOptimizer reduces in a compiled graph only "
+                "without its gradient hooks, which would also reduce each "
+                "gradient eagerly after the backward: call remove_hooks() "
+                "first")
+        if self._sharded or self._op == _c.Adasum:
+            _c._trace_fail(
+                NotImplementedError,
+                "grad_process_sets (ROADMAP A5) and op=Adasum (ROADMAP A6) "
+                "do not reduce in a compiled graph yet; step eagerly")
+        # a missing gradient contributes zeros: a parameter that has one on
+        # some processes only must not change the bucket plan, and so the
+        # collectives, of the others
+        grads, ctxs = [], []
+        for p in self._hooked:
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            compressed, ctx = self._compression.compress(
+                g if self._bpps == 1 else g / self._bpps)
+            grads.append(compressed)
+            ctxs.append(ctx)
+        outs = _c.grouped_allreduce(grads, op=self._op,
+                                    prescale_factor=self._prescale,
+                                    postscale_factor=self._postscale)
+        with torch.no_grad():
+            for p, out, ctx in zip(self._hooked, outs, ctxs):
+                g = self._compression.decompress(out, ctx)
+                if p.grad is None:
+                    p.grad = g.clone()
+                else:
+                    p.grad.copy_(g)
 
     def abandon_step(self) -> None:
         """Forget the staged gradients and in-flight handles of a step
@@ -440,6 +500,7 @@ class DistributedOptimizer:
         for h in self._hooks:
             h.remove()
         self._hooks = []
+        self._hooks_on = False
 
     @property
     def param_groups(self):
@@ -500,6 +561,10 @@ class _DistributedAdasumDeltaOptimizer(DistributedOptimizer):
             p.data.add_(out)
 
     def step(self, closure=None):
+        if torch.compiler.is_compiling():
+            _c._trace_fail(NotImplementedError,
+                           "the Adasum delta optimizer does not step in a "
+                           "compiled graph yet (ROADMAP A6); step eagerly")
         loss = closure() if closure is not None else None
         # parameters whose hooks did not fire this step but carry a
         # gradient contribute their delta now, so every process issues the
@@ -588,13 +653,23 @@ class _CompiledPlaneOptimizer(DistributedOptimizer):
 
     def synchronize(self) -> None:
         """Reduce every gradient (a missing one as zeros) and write the
-        results back, in one closure on the dispatcher thread."""
+        results back, in one closure on the dispatcher thread (under
+        torch.compile: in the graph)."""
         grads = []
         for _, p in self._params:
             g = p.grad if p.grad is not None else torch.zeros_like(p)
             grads.append(g if self._bpps == 1 else g / self._bpps)
         out: List[torch.Tensor] = []
-        _c.run_in_order(lambda: out.extend(self._reduce(grads)), grads, out)
+        if torch.compiler.is_compiling():
+            if self._op == _c.Adasum or self._residual is not None:
+                _c._trace_fail(
+                    NotImplementedError,
+                    "Compression.int8 and op=Adasum do not reduce in a "
+                    "compiled graph yet (ROADMAP A6); reduce eagerly")
+            out = self._reduce(grads)
+        else:
+            _c.run_in_order(lambda: out.extend(self._reduce(grads)), grads,
+                            out)
         with torch.no_grad():
             for (_, p), g in zip(self._params, out):
                 if p.grad is None:
@@ -650,8 +725,8 @@ class _CompiledPlaneOptimizer(DistributedOptimizer):
 
     @staticmethod
     def _mean(gs, group):
-        from .mesh import group_allreduce
-        n = torch.distributed.get_world_size(group)
+        from .mesh import group_allreduce, group_size
+        n = group_size(group)
         return [true_divide(g, n) for g in group_allreduce(gs, group)]
 
     def _reduce_bucket(self, vals, rvals):
@@ -698,8 +773,10 @@ class _CompiledPlaneOptimizer(DistributedOptimizer):
         if not average and self._flat is not None:
             # division, not a reciprocal multiply: the JAX package's
             # numerics
-            n_inner = torch.distributed.get_world_size(self._inner)
+            from .mesh import group_size
+            n_inner = group_size(self._inner)
             gs = [true_divide(g, n_inner) for g in gs]
         if self._postscale != 1.0:
             gs = [g * self._postscale for g in gs]
         return [g.to(orig_dtype) for g in gs], new_r
+

@@ -30,6 +30,26 @@ same block (``mesh_utils.grad_process_sets``), so the step applies the
 gradient of the global mean loss, as the JAX package's one SPMD program
 does. At tp = fsdp = 1 the step is the unsharded one, launch for launch.
 
+``compiled=True`` is the counterpart of the JAX step's one compiled
+program (``jax.jit(_step, donate_argnums=(0, 1))``,
+``horovod_tpu/parallel/train.py:120-125``): the step runs two regions
+compiled with ``torch.compile(fullgraph=True)``, so a graph break raises
+instead of falling back. (a) The forward and the loss, with the flash
+kernel as the custom op ``hvd_tpu::flash_fwd``; ``loss.backward()`` then
+runs the compiled backward outside it (a backward inside a compiled
+region breaks the graph). (b) The gradient reduction in the graph
+(``DistributedOptimizer.synchronize`` under compile: the in-jit grouped
+allreduce, one collective per packed bucket). The inner optimizer then
+steps eagerly, as the eager step's does (torch's optimizers break the
+graph in ``step()``), so any optimizer is taken and the update is the
+eager step's, bit for bit. The optimizer runs without its hooks. The
+regions compile with
+``compile_backend`` (inductor by default; the CPU tests pass
+"aot_eager") through a recording backend, which notes each compiled
+graph's region, nodes, in-graph all-reduces and flash ops in
+``bundle.compile_log``. Data parallelism only: a mesh with tp, fsdp or
+sp > 1 raises (ROADMAP A5).
+
 The mesh train-state helpers (:func:`train_state_tree`,
 :func:`run_mesh_step`, :func:`save_mesh_train_state`,
 :func:`restore_mesh_train_state`, :func:`drain_mesh_train_state`) run,
@@ -105,6 +125,27 @@ class TrainStepBundle:
     mesh: Any = None
     #: the parameters' layout on the mesh (tp > 1 or fsdp > 1), else None
     sharding: Optional[MeshSharding] = None
+    #: compiled=True: one entry per compiled graph ({"region": "forward"
+    #: or "reduce", "nodes", "all_reduces", "flash_ops"})
+    compile_log: Optional[list] = None
+    #: compiled=True: the step's compiled regions, (forward(tokens,
+    #: targets, pos_offset) -> loss, reduce()), for timing them apart
+    regions: Optional[tuple] = None
+
+
+def _recording_backend(backend: str, region: str, log: list):
+    """A torch.compile backend that notes the graph Dynamo hands it in
+    ``log`` and compiles it with ``backend``."""
+    def compile_fn(gm, example_inputs):
+        ops = [str(n.target) for n in gm.graph.nodes
+               if n.op == "call_function"]
+        log.append({"region": region, "nodes": len(gm.graph.nodes),
+                    "all_reduces": sum("_c10d_functional.all_reduce" in o
+                                       for o in ops),
+                    "flash_ops": sum("hvd_tpu.flash_fwd" in o for o in ops)})
+        from torch._dynamo import lookup_backend
+        return lookup_backend(backend)(gm, example_inputs)
+    return compile_fn
 
 
 def _check_mesh(mesh, cfg: TransformerConfig, dev: torch.device) -> None:
@@ -121,7 +162,8 @@ def make_transformer_train_step(
         cfg: TransformerConfig, device=None,
         optimizer: Optional[Callable] = None, attention: str = "flash",
         generator: Optional[torch.Generator] = None, mesh=None,
-        attention_kind: str = "ring") -> TrainStepBundle:
+        attention_kind: str = "ring", compiled: bool = False,
+        compile_backend: str = "inductor") -> TrainStepBundle:
     """Build the model, its DistributedOptimizer and the step function.
 
     ``optimizer``: a callable taking the model's parameters and returning a
@@ -133,7 +175,9 @@ def make_transformer_train_step(
     "ulysses") picks the sequence-parallel attention when sp > 1, and the
     step takes the global batch and returns the global mean loss. Needs
     ``init()`` first. With tp > 1 or fsdp > 1 the weights are drawn whole,
-    as without a mesh, and each process keeps its blocks."""
+    as without a mesh, and each process keeps its blocks. ``compiled``:
+    the compiled step (see the module docstring), its regions compiled
+    with ``compile_backend``."""
     dev = resolve_device(device)
     if attention not in ("flash", "default"):
         raise ValueError(f"attention must be 'flash' or 'default', "
@@ -147,6 +191,12 @@ def make_transformer_train_step(
                              f"sequence shard; sp > 1 takes attention="
                              f"'flash' and attention_kind 'ring' or "
                              f"'ulysses'")
+        if compiled and any(axis_size(mesh, a) > 1
+                            for a in ("tp", "fsdp", "sp")):
+            raise ValueError("compiled=True runs data parallelism only; a "
+                             "mesh with tp, fsdp or sp > 1 steps eagerly "
+                             "until the compiled mesh step lands (ROADMAP "
+                             "A5)")
         attn = sharded_attention(mesh, attention_kind) or attn
         if axis_size(mesh, "tp") > 1 or axis_size(mesh, "fsdp") > 1:
             shapes = {n: tuple(p.shape) for n, p in
@@ -166,6 +216,9 @@ def make_transformer_train_step(
     opt = DistributedOptimizer((optimizer or default_optimizer)(
         model.parameters()), named_parameters=model.named_parameters(),
         grad_process_sets=sets)
+
+    if compiled:
+        return _compiled_bundle(cfg, model, opt, dev, mesh, compile_backend)
 
     def step(tokens, targets):
         pos_offset = 0
@@ -188,6 +241,43 @@ def make_transformer_train_step(
 
     return TrainStepBundle(model=model, optimizer=opt, step=step, mesh=mesh,
                            sharding=sharding)
+
+
+def _compiled_bundle(cfg, model, opt, dev, mesh,
+                     backend: str) -> TrainStepBundle:
+    """The bundle of ``compiled=True``: regions (a) and (b) of the module
+    docstring around the eager backward."""
+    opt.remove_hooks()
+    log: list = []
+
+    def forward_loss(tokens, targets, pos_offset):
+        logits = model(tokens, pos_offset)
+        return F.cross_entropy(logits.reshape(-1, cfg.vocab_size),
+                               targets.reshape(-1).long())
+
+    forward = torch.compile(forward_loss, fullgraph=True,
+                            backend=_recording_backend(backend, "forward",
+                                                       log))
+    reduce = torch.compile(opt.synchronize, fullgraph=True,
+                           backend=_recording_backend(backend, "reduce", log))
+
+    def step(tokens, targets):
+        pos_offset = 0
+        if mesh is not None:   # this rank's rows of the global batch
+            rows, cols = batch_spec(mesh, *tokens.shape[:2])
+            tokens, targets = tokens[rows, cols], targets[rows, cols]
+            pos_offset = cols.start
+        opt.zero_grad(set_to_none=True)
+        loss = forward(tokens.to(dev), targets.to(dev), pos_offset)
+        loss.backward()
+        reduce()
+        opt._opt.step()
+        if mesh is None:
+            return loss.detach()
+        return _c.allreduce(loss.detach(), op=_c.Average, name="mesh.loss")
+
+    return TrainStepBundle(model=model, optimizer=opt, step=step, mesh=mesh,
+                           compile_log=log, regions=(forward, reduce))
 
 
 # -- the mesh train state: run / save / restore / drain (the JAX package's

@@ -96,6 +96,24 @@ class ResponseCache:
             _M_EVICTIONS.inc()
         return victim
 
+    def erase(self, key: int) -> None:
+        """Invalidate one entry (reference: stalled tensors are
+        invalidated, stall_inspector.cc:31-60); its next submission
+        re-validates."""
+        if self._h is not None:
+            self._nat.cdll.hvd_cache_erase(self._h, key)
+            return
+        with self._lock:
+            self._lru.pop(key, None)
+
+    def clear(self) -> None:
+        """Drop every entry."""
+        if self._h is not None:
+            self._nat.cdll.hvd_cache_clear(self._h)
+            return
+        with self._lock:
+            self._lru.clear()
+
     def __len__(self) -> int:
         if self._h is not None:
             return int(self._nat.cdll.hvd_cache_size(self._h))

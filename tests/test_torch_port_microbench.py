@@ -13,6 +13,7 @@ count left out. The generation and fleet sections are in
 ``test_torch_port_microbench_gen.py`` and ``_fleet.py``.
 """
 
+import functools
 import json
 import os
 import subprocess
@@ -54,7 +55,8 @@ def port_rows():
     thvd.init(device="cpu")
     try:
         return {
-            "eager": tmb.eager_sweep(sizes=(1 << 10, 1 << 14), iters=1),
+            "eager": tmb.eager_sweep(sizes=(1 << 10, 1 << 14), iters=1,
+                                     compile_backend="aot_eager"),
             "bucketed": tmb.bucketed_optimizer_sweep(iters=1),
             "injit": tmb.injit_optimizer_sweep(iters=1),
             "sdc": tmb.sdc_guard_sweep(steps=2, rounds=1,
@@ -126,12 +128,20 @@ def _cli(*args, timeout=120):
                           timeout=timeout, cwd=ROOT)
 
 
-def test_command_line_prints_one_line_per_section_and_writes_out(tmp_path):
+def test_command_line_prints_one_line_per_section_and_writes_out(
+        tmp_path, monkeypatch, capsys):
+    """``main`` in this process, its in-jit reduction compiled with
+    aot_eager (inductor's first C++ build on the CPU takes tens of
+    seconds); the CLI's argument errors are checked in a subprocess
+    below."""
+    monkeypatch.setattr(tmb, "eager_sweep", functools.partial(
+        tmb.eager_sweep, compile_backend="aot_eager"))
     out = tmp_path / "mb.json"
-    r = _cli("--quick", "--device", "cpu", "--sections",
-                "tracing,eager_1proc", "--out", str(out))
-    assert r.returncode == 0, r.stderr[-2000:]
-    lines = [json.loads(ln) for ln in r.stdout.splitlines()
+    rc = tmb.main(["--quick", "--device", "cpu", "--sections",
+                   "tracing,eager_1proc", "--out", str(out)])
+    stdout = capsys.readouterr().out
+    assert rc == 0, stdout[-2000:]
+    lines = [json.loads(ln) for ln in stdout.splitlines()
              if ln.startswith("{")]
     assert [ln["section"] for ln in lines] == ["tracing", "eager_1proc"]
     assert lines[1]["device"] == "cpu" and lines[1]["backend"] == "gloo"

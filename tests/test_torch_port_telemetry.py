@@ -223,9 +223,11 @@ def test_dispatch_path_series_match_jax(monkeypatch):
     before = _path_series(jmetrics.snapshot())
     _run_jax()
     jax_delta = _delta(before, _path_series(jmetrics.snapshot()))
-    before = _path_series(tmetrics.snapshot())
+    full_before = tmetrics.snapshot()
+    before = _path_series(full_before)
     _run_port()
-    port_delta = _delta(before, _path_series(tmetrics.snapshot()))
+    full_after = tmetrics.snapshot()
+    port_delta = _delta(before, _path_series(full_after))
     assert port_delta == jax_delta
     assert port_delta['hvd_tpu_collective_ops_total{op="alltoall"}'] == 1
     assert port_delta['hvd_tpu_collective_bytes_total{op="grouped_allreduce"}'] \
@@ -233,8 +235,18 @@ def test_dispatch_path_series_match_jax(monkeypatch):
     assert port_delta["hvd_tpu_init_total"] == 1
     assert _help_and_type(tmetrics.render_prometheus()) \
         == _help_and_type(jmetrics.render_prometheus())
-    # the JAX package's in-jit series has no port counterpart
-    assert "hvd_tpu_injit_lowerings_total" not in tmetrics.render_prometheus()
+    # the in-jit series: the JAX package's help text and type, and an
+    # eager run lowers nothing
+    def injit_header(text):
+        return [line for line in text.splitlines() if line.startswith("#")
+                and line.split()[2] == "hvd_tpu_injit_lowerings_total"]
+    assert injit_header(tmetrics.render_prometheus()) \
+        == injit_header(jmetrics.render_prometheus())
+    assert len(injit_header(tmetrics.render_prometheus())) == 2
+    injit = [k for k in full_after
+             if k.startswith("hvd_tpu_injit_lowerings_total")]
+    assert len(injit) == 6
+    assert all(full_after[k] == full_before.get(k, 0.0) for k in injit)
 
 
 # ---------------------------------------------------------------------------
