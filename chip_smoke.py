@@ -32,6 +32,16 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
    full-sequence flash call at S 8192 and to the plain fp32 attention at
    B 1; the launches are counted (16 forward, 16 recomputed in backward)
    and the ring is timed against the single call.
+5a. compiled_ring: the same ring on the same inputs with each position's
+   local compute compiled by torch.compile (inductor, fullgraph=True, one
+   graph a position, dynamic=False): every step is the custom op
+   hvd_tpu::flash_fwd at that position's int offsets (my * S, src * S),
+   each step checkpointed inside the graph, forward and backward. The
+   output and dq, dk, dv are held to the eager ring's (and the output to
+   the full call) within the ring phase's tolerances, the launches to the
+   eager ring's (16 forward, 16 recomputed). Prints each position's
+   compile seconds (its first forward and backward) and the compiled and
+   eager forward + backward ms.
 6. tensor_parallel: the full-width default model's decoder layer 0 split
    into tp = 4 blocks (parallel.mesh_utils.tensor_parallel_blocks and
    tensor_parallel_local: each
@@ -42,6 +52,11 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
    layer (relative L2), 4 launches counted, and the kernel at BH 24 held
    to its plain version and timed against the BH-96 call, its plain
    version, SDPA and its bound.
+6a. compiled_tp: the same split layer (tensor_parallel_local over the 4
+   blocks) compiled by torch.compile (inductor, fullgraph=True), each
+   block's attention the custom op: held to the unsplit layer within
+   TOL_TP_REL, 4 launches; prints the compile seconds and the compiled
+   and eager ms.
 7. train: the full-width default TransformerConfig (111,121,920
    parameters, bf16 activations) trained for a few steps at batch
    8 x 2048 through hvd.init() (NCCL), broadcast_parameters and
@@ -160,9 +175,22 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
    uncompressed reduction is the identity: those losses, Adasum's and
    every tuned variant's equal one another and the train phase's (the
    eager plane) bit for bit; int8's are finite, its first equal, the rest
-   within TOL_INT8_LOSS. Prints each variant's steady ms a step, the int8
-   reduction's ms a step against its memory bound, the adopted variant
-   and the flash launches (12 a step).
+   within TOL_INT8_LOSS. Then in the graph: int8 and Adasum on the
+   compiled plane, and Adasum on the eager plane (DistributedOptimizer(
+   op=Adasum) without axis_name, hooks removed), each with synchronize()
+   compiled by torch.compile (fullgraph=True, REDUCTIONS_BACKEND: the
+   graph's in-graph collectives and PyTorch's eager kernels, since
+   inductor's compile of the int8 reduction alone outlasts the script's
+   margin) and the inner AdamW stepping eagerly, beside the eager
+   plane's own Adasum run: the Adasum losses equal their eager variants'
+   bit for bit; int8's first loss equals the eager int8's and the rest
+   lie within TOL_COMPILED_LATER of them, relative (a compiler that
+   fuses the quantization's kernels may round as the compiled phase's
+   do; whether they came out bit-equal is printed). Prints each variant's
+   steady ms a step (and the compiled ones' first step, their compile),
+   the int8 reduction's ms a step, eager and compiled, against its
+   memory bound, the adopted variant and the flash launches (12 a
+   step).
 14. serving (runs in the main world, between cnn and collectives): the
    train phase's parameters committed through the port's CheckpointManager
    under build/ as step 1 and served by serving.InferenceEngine (max batch
@@ -715,7 +743,7 @@ def ring_phase(torch, fa):
     def rel(a, b):
         return ((a.float() - b.float()).norm() / b.float().norm()).item()
     grad_rel_full = [rel(a, b) for a, b in zip(ring_grads, full_grads)]
-    del full_out, full_grads
+    del full_grads
 
     # the plain fp32 attention at B 1 (a dense 8192^2 score tensor a head)
     one = [t[:1].detach().float().requires_grad_() for t in (q, k, v)]
@@ -726,7 +754,7 @@ def ring_phase(torch, fa):
                    / (2 * ulp(ref) + RING_P_TERMS_VS_EXACT * 2.0 ** -8
                       * pv[:1])).max()
     grad_rel_exact = [rel(a[:1], b.grad) for a, b in zip(ring_grads, one)]
-    del one, ref, pv, ring_grads
+    del one, ref
 
     # times: the ring (all positions, one card) against the single call
     with torch.no_grad():
@@ -774,11 +802,110 @@ def ring_phase(torch, fa):
         "full_call_forward_backward_ms": full_fb_ms,
         "ring_step_ms": step_ms, "step_kernel_ms": kernel_ms, "ok": ok}
     emit(result)
-    del q, k, v, g, ring_out
-    torch.cuda.empty_cache()
     if not ok:
         raise AssertionError("ring attention disagrees, or its launches "
                              "are not the expected count")
+    eager = {"out": ring_out, "grads": ring_grads, "full_out": full_out,
+             "pv": pv, "launches_forward": fwd_launches,
+             "launches": launches, "forward_backward_ms": ring_fb_ms}
+    compiled_launches = compiled_ring_phase(torch, fa, ra, q, k, v, g, eager)
+    del q, k, v, g, ring_out, ring_grads, full_out, pv, eager
+    torch.cuda.empty_cache()
+    return launches, compiled_launches
+
+
+def bf16_ulp(torch, x):
+    """One bf16 ulp of each element of the fp32 ``x``."""
+    _, e = torch.frexp(x.abs().clamp_min(torch.finfo(torch.bfloat16).tiny))
+    return torch.ldexp(torch.ones_like(x), e - 8)
+
+
+def compiled_ring_phase(torch, fa, ra, q, k, v, g, eager) -> int:
+    """Phase 5a of the module docstring: the ring phase's positions, each
+    compiled, on its inputs, held to its eager ring (``eager``). Returns
+    the flash launches of the compiled ring's forward and backward."""
+    n, S = RING_SP, RING_SEQ
+    sl = S // n
+
+    def split(x):
+        return [x[:, j * sl:(j + 1) * sl] for j in range(n)]
+
+    def local(my, qb, *kv):
+        return ra.ring_attention_local(qb, list(zip(kv[::2], kv[1::2])), my,
+                                       causal=True)
+    # the position is a constant of its graph (its offsets are ints)
+    compiled = torch.compile(local, fullgraph=True, dynamic=False)
+
+    def ring(qq, kk, vv):
+        kv = [t for pair in zip(split(kk), split(vv)) for t in pair]
+        return torch.cat([compiled(j, qb, *kv)
+                          for j, qb in enumerate(split(qq))], dim=1)
+
+    # each position compiles at its first forward and backward (the
+    # launches counted from 0 just before, read just after)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    kv = [t for pair in zip(split(leaves[1]), split(leaves[2]))
+          for t in pair]
+    torch.cuda.synchronize()
+    fa.LAUNCHES["flash_fwd"] = 0
+    compile_s, fwd_launches, outs = [], 0, []
+    for j, (qb, gb) in enumerate(zip(split(leaves[0]), split(g))):
+        t0 = time.perf_counter()
+        before = fa.LAUNCHES["flash_fwd"]
+        out = compiled(j, qb, *kv)
+        fwd_launches += fa.LAUNCHES["flash_fwd"] - before
+        out.backward(gb)
+        torch.cuda.synchronize()
+        compile_s.append(time.perf_counter() - t0)
+        outs.append(out.detach())
+    launches = fa.LAUNCHES["flash_fwd"]
+    got = torch.cat(outs, dim=1)
+    grads = [t.grad for t in leaves]
+    del outs, leaves, kv
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    def ratio(out, ref):
+        # the ring phase's bound of a ring output against a reference
+        return ((out.float() - ref.float()).abs()
+                / (2 * bf16_ulp(torch, ref.float())
+                   + RING_P_TERMS_VS_FULL * 2.0 ** -8 * eager["pv"])
+                ).max().item()
+    ratio_eager = ratio(got, eager["out"])
+    ratio_full = ratio(got, eager["full_out"])
+    grad_rel = [rel(a, b) for a, b in zip(grads, eager["grads"])]
+    bitwise = torch.equal(got, eager["out"])
+
+    def run():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        ring(*leaves).backward(g)
+    ms = cuda_ms(run, 2, warmup=1)
+    del got, grads
+    ok = (fwd_launches == eager["launches_forward"]
+          and launches == eager["launches"]
+          and ratio_eager <= 1 and ratio_full <= 1
+          and max(grad_rel) <= TOL_RING_GRAD_REL)
+    emit({"phase": "compiled_ring", "backend": "inductor", "sp": n,
+          "seq": S, "batch": BATCH, "dtype": "bfloat16", "causal": True,
+          "compile_seconds_by_position": compile_s,
+          "launches_forward": fwd_launches,
+          "launches_backward_recompute": launches - fwd_launches,
+          "eager_launches_forward": eager["launches_forward"],
+          "eager_launches_backward_recompute":
+              eager["launches"] - eager["launches_forward"],
+          "max_over_bound_vs_eager_ring": ratio_eager,
+          "max_over_bound_vs_full_call": ratio_full,
+          "output_equal_to_eager_ring": bitwise,
+          "grad_rel_l2_vs_eager_ring_dq_dk_dv": grad_rel,
+          "tol_grad_rel": TOL_RING_GRAD_REL,
+          "compiled_forward_backward_ms": ms,
+          "eager_forward_backward_ms": eager["forward_backward_ms"],
+          "nvidia_smi": nvidia_smi_line(), "ok": ok})
+    torch.compiler.reset()
+    if not ok:
+        raise AssertionError("the compiled ring disagrees with the eager "
+                             "ring, or its launches differ")
     return launches
 
 
@@ -859,12 +986,55 @@ def tensor_parallel_phase(torch, fa):
           "split_layer_forward_ms": split_ms,
           "unsplit_layer_forward_ms": layer_ms,
           "flash_bh24": block, "flash_bh96": whole, "ok": ok})
-    del layer, blocks, x, want, got, diff
-    torch.cuda.empty_cache()
     if not ok:
         raise AssertionError("the tp-split layer disagrees with the layer, "
                              "or its launches are not the expected count")
-    return launches, block
+    compiled_launches = compiled_tp_phase(torch, fa, layer, blocks, x, want,
+                                          got, split_ms)
+    del layer, blocks, x, want, got, diff
+    torch.cuda.empty_cache()
+    return launches, compiled_launches, block
+
+
+def compiled_tp_phase(torch, fa, layer, blocks, x, want, eager,
+                      eager_ms) -> int:
+    """Phase 6a of the module docstring: the tensor_parallel phase's split
+    layer compiled, held to the unsplit layer ``want`` (and compared with
+    the eager split layer ``eager``). Returns its flash launches."""
+    from horovod_tpu_torch.parallel.mesh_utils import tensor_parallel_local
+    compiled = torch.compile(
+        lambda h: tensor_parallel_local(layer, blocks, h, None),
+        fullgraph=True)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        compiled(x)
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        fa.LAUNCHES["flash_fwd"] = 0
+        got = compiled(x)
+        torch.cuda.synchronize()
+        launches = fa.LAUNCHES["flash_fwd"]
+        rel = ((got.float() - want.float()).norm()
+               / want.float().norm()).item()
+        ms = cuda_ms(lambda: compiled(x), 5)
+    ok = (launches == TP and rel <= TOL_TP_REL
+          and bool(torch.isfinite(got.float()).all()))
+    emit({"phase": "compiled_tp", "backend": "inductor", "tp": TP,
+          "batch": BATCH, "seq": x.shape[1], "launches": launches,
+          "launches_expected": TP, "rel_l2_vs_unsplit_layer": rel,
+          "tol_rel_l2": TOL_TP_REL,
+          "max_abs_err_vs_eager_split_layer":
+              (got.float() - eager.float()).abs().max().item(),
+          "equal_to_eager_split_layer": torch.equal(got, eager),
+          "compile_seconds": compile_s, "compiled_forward_ms": ms,
+          "eager_forward_ms": eager_ms, "nvidia_smi": nvidia_smi_line(),
+          "ok": ok})
+    torch.compiler.reset()
+    if not ok:
+        raise AssertionError("the compiled tp-split layer disagrees with "
+                             "the layer, or its launches are not the "
+                             "expected count")
+    return launches
 
 
 def small_training_reference(torch, hvd):
@@ -2255,12 +2425,23 @@ def estimator_phase(torch, fa, cfg, train_ms):
 TOL_INT8_LOSS = 0.5
 RED_VARIANTS = [(s, p) for s in ("hierarchical", "flat")
                 for p in ("per_leaf", "packed")]
+# the compiler of the in-graph reductions: the graph's collectives and
+# kernels as PyTorch's eager ones. Inductor took 649 s to compile the
+# int8 reduction of the model's 148 gradients and 67 s the compiled
+# plane's Adasum on this card's machine (PERF.md, PR 16), more than the
+# whole script's margin under its time limit.
+REDUCTIONS_BACKEND = "aot_eager"
 
 
-def _compiled_step(torch, cfg, tokens, targets, **kw):
+def _compiled_step(torch, cfg, tokens, targets, eager_plane=False,
+                   in_graph=False, **kw):
     """The train phase's model, weights (seed 0) and AdamW behind a
-    compiled-plane DistributedOptimizer over the ("cross", "local") mesh;
-    returns (step function, optimizer). The step returns its loss."""
+    compiled-plane DistributedOptimizer over the ("cross", "local") mesh
+    (``eager_plane``: the eager plane's, without axis_name); returns
+    (step function, optimizer, its reduction). The step returns its
+    loss. ``in_graph``: the reduction is synchronize() compiled
+    (REDUCTIONS_BACKEND, fullgraph=True; the hooks removed) and the
+    inner AdamW steps after it, eagerly."""
     import dataclasses
     import torch.nn.functional as F
     import horovod_tpu_torch as hvd
@@ -2270,10 +2451,20 @@ def _compiled_step(torch, cfg, tokens, targets, **kw):
     model = Transformer(
         dataclasses.replace(cfg, attention_fn=flash_attention_fn),
         device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    if not eager_plane:
+        kw.update(axis_name="cross", inner_axis="local",
+                  mesh=hvd.cross_local_mesh())
     opt = hvd.DistributedOptimizer(
         default_optimizer(model.parameters()),
-        named_parameters=model.named_parameters(), axis_name="cross",
-        inner_axis="local", mesh=hvd.cross_local_mesh(), **kw)
+        named_parameters=model.named_parameters(), **kw)
+    reduce = opt.synchronize
+    if in_graph:
+        opt.remove_hooks()
+        # a new optimizer's bound method: Dynamo's cache of the code
+        # object is dropped first (its recompile limit)
+        torch.compiler.reset()
+        reduce = torch.compile(opt.synchronize, fullgraph=True,
+                               backend=REDUCTIONS_BACKEND)
 
     def step():
         opt.zero_grad(set_to_none=True)
@@ -2281,9 +2472,10 @@ def _compiled_step(torch, cfg, tokens, targets, **kw):
         loss = F.cross_entropy(logits.reshape(-1, cfg.vocab_size),
                                targets.reshape(-1).long())
         loss.backward()
-        opt.step()
+        reduce()
+        opt._opt.step()
         return loss.detach()
-    return step, opt
+    return step, opt, reduce
 
 
 def _run_steps(torch, step):
@@ -2293,17 +2485,17 @@ def _run_steps(torch, step):
         losses.append(step().item())
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
-    return losses, 1e3 * sum(seconds[1:]) / len(seconds[1:])
+    return losses, 1e3 * sum(seconds[1:]) / len(seconds[1:]), seconds[0]
 
 
-def int8_reduction_timing(torch, opt, reps: int = 5) -> dict:
+def int8_reduction_timing(torch, opt, reduce, reps: int = 5) -> dict:
     """The int8 reduction of one step's gradients (every bucket, through
     the dispatcher) timed with CUDA events, against the least time the
     card needs for it: read each gradient and its residual once, write
     the reduced gradient and the new residual once (16 bytes a parameter
     at fp32; q, the gathered copy and fp64 temporaries are not counted)."""
     n = sum(p.numel() for _, p in opt._params)
-    ms = cuda_ms(opt.synchronize, reps, warmup=1)
+    ms = cuda_ms(reduce, reps, warmup=1)
     nbytes = 16 * n
     return {"int8_reduce_ms": ms, "int8_reduce_bound_ms":
             1e3 * nbytes / PEAK_BYTES, "int8_reduce_bytes": nbytes,
@@ -2329,17 +2521,31 @@ def reductions_phase(torch, fa, cfg, train_losses) -> int:
             for s, p in RED_VARIANTS}
     runs["int8"] = dict(packing="packed", compression=hvd.Compression.int8)
     runs["adasum"] = dict(op=hvd.Adasum)
+    # the reductions in the graph, and the eager plane's Adasum eagerly
+    runs["int8_in_graph"] = dict(runs["int8"], in_graph=True)
+    runs["adasum_in_graph"] = dict(op=hvd.Adasum, in_graph=True)
+    runs["adasum_eager_plane"] = dict(op=hvd.Adasum, eager_plane=True)
+    runs["adasum_eager_plane_in_graph"] = dict(op=hvd.Adasum,
+                                               eager_plane=True,
+                                               in_graph=True)
     for name, kw in runs.items():
         before = fa.LAUNCHES["flash_fwd"]
-        step, opt = _compiled_step(torch, cfg, tokens, targets, **kw)
-        losses, ms = _run_steps(torch, step)
+        step, opt, reduce = _compiled_step(torch, cfg, tokens, targets, **kw)
+        losses, ms, first_s = _run_steps(torch, step)
         result["variants"][name] = {
             "losses": losses, "ms_per_step_steady": ms,
             "flash_launches": fa.LAUNCHES["flash_fwd"] - before}
-        if name == "int8":
-            result.update(int8_reduction_timing(torch, opt))
-        del step, opt
+        if kw.get("in_graph"):
+            result["variants"][name]["first_step_seconds"] = first_s
+        if name.startswith("int8"):
+            timing = int8_reduction_timing(torch, opt, reduce)
+            if name == "int8":
+                result.update(timing)
+            else:
+                result["int8_in_graph_reduce_ms"] = timing["int8_reduce_ms"]
+        del step, opt, reduce
         torch.cuda.empty_cache()
+    torch.compiler.reset()
 
     # the tuner: each variant a fresh model, its warmup and timed calls
     # the same TRAIN_STEPS steps as above
@@ -2363,11 +2569,25 @@ def reductions_phase(torch, fa, cfg, train_losses) -> int:
 
     v = result["variants"]
     plain = v["hierarchical/per_leaf"]["losses"]
+    int8, int8_g = v["int8"]["losses"], v["int8_in_graph"]["losses"]
+    result["int8_in_graph_equal_bitwise"] = int8_g == int8
+    result["int8_in_graph_rel_diff"] = [abs(a - b) / abs(b)
+                                        for a, b in zip(int8_g, int8)]
     checks = {
         "uncompressed_equal": all(v[f"{s}/{p}"]["losses"] == plain
                                   for s, p in RED_VARIANTS),
         "equal_to_train_phase": plain == train_losses,
         "adasum_equal": v["adasum"]["losses"] == plain,
+        "adasum_in_graph_equal": v["adasum_in_graph"]["losses"]
+        == v["adasum"]["losses"],
+        "adasum_eager_plane_equal": v["adasum_eager_plane"]["losses"]
+        == plain,
+        "adasum_eager_plane_in_graph_equal":
+            v["adasum_eager_plane_in_graph"]["losses"]
+            == v["adasum_eager_plane"]["losses"],
+        "int8_in_graph_first_equal": int8_g[0] == int8[0],
+        "int8_in_graph_within_tol": all(
+            r <= TOL_COMPILED_LATER for r in result["int8_in_graph_rel_diff"]),
         "int8_finite": all(math.isfinite(x) for x in v["int8"]["losses"]),
         "int8_first_equal": v["int8"]["losses"][0] == plain[0],
         "int8_within_tol": all(abs(a - b) <= TOL_INT8_LOSS for a, b in
@@ -2380,6 +2600,8 @@ def reductions_phase(torch, fa, cfg, train_losses) -> int:
         * TRAIN_STEPS * (len(runs) + len(RED_VARIANTS)),
     }
     result.update(checks=checks, tol_int8_loss=TOL_INT8_LOSS,
+                  tol_int8_in_graph_rel=TOL_COMPILED_LATER,
+                  in_graph_backend=REDUCTIONS_BACKEND,
                   ok=all(checks.values()))
     emit(result)
     if not result["ok"]:
@@ -4317,8 +4539,9 @@ def main() -> int:
     main_case = kernel_cases(torch, fa)
     row = kernel_timing(torch, fa, main_case)
     gradient_check(torch, fa)
-    ring_launches = ring_phase(torch, fa)
-    tp_launches, tp_row = tensor_parallel_phase(torch, fa)
+    ring_launches, compiled_ring_launches = ring_phase(torch, fa)
+    tp_launches, compiled_tp_launches, tp_row = tensor_parallel_phase(
+        torch, fa)
 
     hvd.init(process_sets=[[0]])
     small_training_reference(torch, hvd)
@@ -4358,7 +4581,11 @@ def main() -> int:
                        "launches_by_path": {"train": row["launches"],
                                             "compiled": compiled_launches,
                                             "ring": ring_launches,
+                                            "compiled_ring":
+                                                compiled_ring_launches,
                                             "tensor_parallel": tp_launches,
+                                            "compiled_tp":
+                                                compiled_tp_launches,
                                             **elastic_launches,
                                             **estimator_launches,
                                             "reductions":

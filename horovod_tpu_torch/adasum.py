@@ -17,7 +17,6 @@ first, then the tree over the gathered rows of an outer group.
 from typing import List, Optional
 
 import torch
-import torch.distributed as dist
 
 _HALF = (torch.float16, torch.bfloat16)
 
@@ -45,9 +44,14 @@ def adasum_tree(stacked: torch.Tensor) -> torch.Tensor:
     with an unrolled log2(n) reduction tree."""
     n = stacked.shape[0]
     if not _is_pow2(n):
-        raise ValueError(
-            f"Adasum requires a power-of-two number of contributions, got {n}"
-            " (reference: horovod/common/util.py num_rank_is_power_2).")
+        message = (f"Adasum requires a power-of-two number of contributions, "
+                   f"got {n} (reference: horovod/common/util.py "
+                   f"num_rank_is_power_2).")
+        if torch.compiler.is_compiling():
+            # raised at trace time, as the JAX package raises while it traces
+            from .collectives import _trace_fail
+            _trace_fail(ValueError, message)
+        raise ValueError(message)
     level = [stacked[i] for i in range(n)]
     while len(level) > 1:
         level = [adasum_pair(level[2 * i], level[2 * i + 1])
@@ -108,14 +112,17 @@ def adasum_grads(grads, outer_group, inner_group=None):
     result is identical on every member. ``grads``: a tensor, or a list,
     tuple or dict of tensors (the same structure comes back). The groups
     are ``torch.distributed`` process groups (``DeviceMesh.get_group``);
-    every wire call runs through ``collectives.run_in_order``."""
+    every wire call runs through ``collectives.run_in_order``, or is an
+    in-graph collective while torch.compile traces (then a group may also
+    be given by its name, and the power-of-two check raises at trace
+    time)."""
     from .compression import true_divide
-    from .mesh import group_allgather, group_allreduce
+    from .mesh import group_allgather, group_allreduce, group_size
 
     def combine(g):
         if inner_group is not None:
             g, = group_allreduce([g], inner_group)
-            g = true_divide(g, dist.get_world_size(inner_group))
+            g = true_divide(g, group_size(inner_group))
         return adasum_tree(group_allgather(g, outer_group))
 
     if isinstance(grads, torch.Tensor):

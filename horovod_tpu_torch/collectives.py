@@ -93,9 +93,16 @@ takes even splits only. ``*_async`` returns a completed handle that
 ``HVD_TPU_INJIT_FASTPATH=0`` makes a traced call raise TypeError and
 ``process_set=`` raises ValueError (a compiled graph lowers over the
 mesh in scope), both while the graph is traced, as the JAX package
-raises while it traces. allreduce keeps its gradient in the graph;
-allgather and broadcast of a tensor that requires grad raise
-NotImplementedError there (their gradients are queued). :func:`psum`,
+raises while it traces. Adasum is, per member, the prescale, an
+all-gather over the scope's group and the Adasum tree
+(:func:`.adasum.adasum_grads`), then the postscale; with a mesh of
+several dims in scope it raises ValueError, as the JAX package does (an
+explicit hierarchy is ``adasum_grads``' inner and outer groups).
+allreduce, allgather and broadcast keep their gradients in the graph:
+allreduce's is the same allreduce, allgather's the reduce-scatter (sum)
+of the cotangent onto this process's rows, broadcast's the sum of every
+process's cotangent at the root and zeros elsewhere, as JAX's autodiff
+of ``lax.all_gather`` gives them. :func:`psum`,
 :func:`pmean`, :func:`all_gather_in_jit`, :func:`reduce_scatter_in_jit`,
 :func:`all_to_all_in_jit` and :func:`ppermute` are the named in-graph
 collectives over one dim of the mesh in scope.
@@ -661,10 +668,45 @@ def _functional():
 
 def _all_gather(x, dim: int, group):
     """The in-graph all-gather along ``dim`` (``all_gather_single`` where
-    this torch has it: it deprecates ``all_gather_tensor``)."""
+    this torch has it: it deprecates ``all_gather_tensor``). On a tensor
+    that requires grad, the differentiable all-gather: its gradient is
+    the reduce-scatter (sum) of the cotangent onto this member's block,
+    the transpose JAX's autodiff takes of ``lax.all_gather``."""
     fc = _functional()
+    if x.requires_grad and torch.is_grad_enabled():
+        return fc.all_gather_tensor_autograd(x.contiguous(), dim, group)
     fn = getattr(fc, "all_gather_single", None) or fc.all_gather_tensor
     return fn(x.contiguous(), dim, group)
+
+
+def _reduce_scatter(x, dim: int, group):
+    """The in-graph reduce-scatter (sum) along ``dim``
+    (``reduce_scatter_single`` where this torch has it)."""
+    fc = _functional()
+    fn = getattr(fc, "reduce_scatter_single", None) \
+        or fc.reduce_scatter_tensor
+    return fn(x.contiguous(), "sum", dim, group)
+
+
+def _shift(x, group, n: int, dst: Optional[int],
+           src: Optional[int]) -> torch.Tensor:
+    """The 1-D ``x`` sent to member ``dst`` of ``group`` (of ``n``; None:
+    nowhere) and as many elements received from member ``src`` (None:
+    zeros, as ``jax.lax.ppermute`` gives), in one in-graph
+    ``all_to_all_single`` with this member's split sizes."""
+    send, recv = [0] * n, [0] * n
+    if dst is not None:
+        send[dst] = x.numel()
+    if src is not None:
+        recv[src] = x.numel()
+    got = _functional().all_to_all_single(x[:sum(send)].contiguous(), recv,
+                                          send, group)
+    if src is None:
+        # nothing arrives; still wait for the call, which this member's
+        # send rides on
+        _functional().wait_tensor(got)
+        return torch.zeros_like(x)
+    return got
 
 
 @_trace_constant
@@ -678,10 +720,10 @@ def _trace_fail(kind, message: str):
 
 @_trace_constant
 def _injit_scope(mesh, with_process_set: bool) -> tuple:
-    """``(group name, size, this process's index, mapped)`` of the group
-    a traced verb lowers over: the DeviceMesh in scope, all its dims
-    (``mapped``), or the world when there is none. Raises as the JAX
-    package's ``_injit_route`` does."""
+    """``(group name, size, this process's index, mapped, dims)`` of the
+    group a traced verb lowers over: the DeviceMesh in scope, all its
+    ``dims`` (``mapped``), or the world when there is none (``dims`` 0).
+    Raises as the JAX package's ``_injit_route`` does."""
     w = _world()
     if not w.config.get(_config.INJIT_FASTPATH):
         raise TypeError(
@@ -708,7 +750,8 @@ def _injit_scope(mesh, with_process_set: bool) -> tuple:
                 f"over one of its dims with psum/pmean(x, dim) instead.")
         group = dist.group.WORLD
     return (group.group_name, dist.get_world_size(group),
-            dist.get_rank(group), mesh is not None)
+            dist.get_rank(group), mesh is not None,
+            0 if mesh is None else mesh.ndim)
 
 
 @_trace_constant
@@ -756,13 +799,6 @@ def _injit_count(kind: str) -> bool:
     """One lowering of verb ``kind``: called once per trace."""
     _INJIT_METRICS[kind].inc()
     return True
-
-
-# allgather's and broadcast's eager gradients read this process's row
-# offset from the data; in a graph they would break it
-_NO_GRAPH_GRADIENT = ("%s of a tensor that requires grad in a compiled graph "
-                      "is not lowered yet (ROADMAP A6): detach it, or call "
-                      "the verb outside torch.compile")
 
 
 class _InjitHandle:
@@ -818,6 +854,62 @@ def _injit_reduce_bucket(xs, op: ReduceOp, scale: float, group) -> list:
             for x in xs]
 
 
+def _injit_set_reduce(values, group, nproc: int, prescale: float,
+                      postscale: float) -> list:
+    """A process set's bucket summed in the graph, as the eager verb
+    reduces it (:func:`_reduce` under Sum): per dtype, in order of first
+    appearance, one flat buffer in the accumulation dtype and one
+    all-reduce over ``group`` (a group name), then the combined scale,
+    split back to the members' shapes and dtypes. The buffer is the eager
+    call's, so each element sums in the same order on the wire."""
+    out = [None] * len(values)
+    by_dtype = {}
+    for i, v in enumerate(values):
+        by_dtype.setdefault(v.dtype, []).append(i)
+    for dt, idxs in by_dtype.items():
+        scale = _injit_scale(ReduceOp.SUM, nproc, prescale, postscale, dt)
+        acc = torch.float32 if dt in _HALF else dt
+        flat = torch.cat([values[i].reshape(-1).to(acc) for i in idxs])
+        flat, = _injit_all_reduce([flat], "sum", group)
+        if scale != 1.0:
+            flat = flat * scale
+        off = 0
+        for i in idxs:
+            n = values[i].numel()
+            out[i] = flat[off:off + n].view(values[i].shape).to(dt)
+            off += n
+    return out
+
+
+def _injit_adasum(values, prescale: float, postscale: float,
+                  scope) -> list:
+    """Adasum of each member over the scope's group, in the graph (the
+    JAX package's in-jit Adasum, ``horovod_tpu/collectives.py:1619-1634``):
+    prescale, :func:`.adasum.adasum_grads` (an all-gather and the tree),
+    postscale, in the member's dtype, as the eager verb computes it."""
+    from .adasum import adasum_grads
+    if scope[4] > 1:
+        _trace_fail(ValueError,
+                    "in-jit Adasum over multiple mapped axes needs an "
+                    "explicit hierarchy; use adasum_grads(outer_group, "
+                    "inner_group) or DistributedOptimizer(inner_axis=...).")
+    vals = [_as_tensor(v) for v in values]
+    if scope[1] == 1:
+        # a group of one: the scales only, as one product, as eagerly
+        s = prescale * postscale
+        return [v.clone() if s == 1.0 else (v * s).to(v.dtype)
+                for v in vals]
+    out = []
+    for g in vals:
+        if prescale != 1.0:
+            g = (g * prescale).to(g.dtype)
+        g = adasum_grads(g, scope[0])
+        if postscale != 1.0:
+            g = (g * postscale).to(g.dtype)
+        out.append(g)
+    return out
+
+
 def _injit_allreduce(values, op: ReduceOp, prescale: float,
                      postscale: float, scope) -> list:
     """An allreduce of a member list lowered in the graph: same-dtype
@@ -825,9 +917,7 @@ def _injit_allreduce(values, op: ReduceOp, prescale: float,
     bucket."""
     group, nproc = scope[0], scope[1]
     if op == ReduceOp.ADASUM:
-        _trace_fail(NotImplementedError,
-                    "Adasum is not lowered in a compiled graph yet "
-                    "(ROADMAP A6); call the verb outside torch.compile")
+        return _injit_adasum(values, prescale, postscale, scope)
     vals = [_as_tensor(v) for v in values]
     scales = {}
     for v in vals:
@@ -852,7 +942,11 @@ def _injit_allgather(x, scope) -> torch.Tensor:
 
 
 def _injit_broadcast(x, root_rank: int, scope) -> torch.Tensor:
-    group, nproc, _, mapped = scope
+    """Root's ``x``: an all-gather indexed at the root, whose gradient
+    (the transpose of the gather) gives the root the sum of every
+    process's cotangent and the others zeros, as JAX's autodiff of
+    ``all_gather(x)[root]`` does."""
+    group, nproc, _, mapped = scope[:4]
     if not 0 <= root_rank < nproc:
         _trace_fail(ValueError, f"root_rank {root_rank} out of range for "
                     + ("mapped axis size" if mapped else "world size")
@@ -921,10 +1015,7 @@ def reduce_scatter_in_jit(x: torch.Tensor, axis_name,
     """The sum over ``axis_name``, each member keeping its block along
     ``scatter_dimension`` (``jax.lax.psum_scatter(tiled=True)``)."""
     group = _injit_axis(_basics.current_mesh(), axis_name)[0]
-    fc = _functional()
-    fn = getattr(fc, "reduce_scatter_single", None) \
-        or fc.reduce_scatter_tensor
-    return fn(x.contiguous(), "sum", scatter_dimension % x.dim(), group)
+    return _reduce_scatter(x, scatter_dimension % x.dim(), group)
 
 
 def all_to_all_in_jit(x: torch.Tensor, axis_name, split_axis: int,
@@ -945,23 +1036,13 @@ def ppermute(x: torch.Tensor, axis_name, perm) -> torch.Tensor:
     (``jax.lax.ppermute``). One ``all_to_all_single`` with this member's
     split sizes (``permute_tensor`` takes whole permutations only)."""
     group, n, me = _injit_axis(_basics.current_mesh(), axis_name)
-    pairs = [(int(s), int(d)) for s, d in perm]
-    send = [0] * n
-    recv = [0] * n
-    for s, d in pairs:
-        if s == me:
-            send[d] = x.numel()
-        if d == me:
-            recv[s] = x.numel()
-    flat = x.reshape(-1)
-    got = _functional().all_to_all_single(flat[:sum(send)].contiguous(),
-                                          recv, send, group)
-    if not any(recv):
-        # nothing arrives; still wait for the call, which this member's
-        # send rides on
-        _functional().wait_tensor(got)
-        return torch.zeros_like(x)
-    return got.reshape(x.shape)
+    dst = src = None
+    for s, d in perm:
+        if int(s) == me:
+            dst = int(d)
+        if int(d) == me:
+            src = int(s)
+    return _shift(x.reshape(-1), group, n, dst, src).reshape(x.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -1263,10 +1344,9 @@ def allgather(tensor, name: Optional[str] = None,
               process_set=None) -> torch.Tensor:
     """Concatenate each process's tensor along dim 0 (reference:
     torch/mpi_ops.py:310-343). First dims may differ across processes;
-    other dims must match. Differentiable like the reference."""
-    if _differentiable(tensor):
-        if torch.compiler.is_compiling():
-            _trace_fail(NotImplementedError, _NO_GRAPH_GRADIENT % "allgather")
+    other dims must match. Differentiable like the reference (in a
+    compiled graph through the in-graph gather's own gradient)."""
+    if _differentiable(tensor) and not torch.compiler.is_compiling():
         return _AllgatherFn.apply(tensor, name, process_set)
     return synchronize(allgather_async(tensor, name=name,
                                        process_set=process_set))
@@ -1358,10 +1438,9 @@ def broadcast(tensor, root_rank: int, name: Optional[str] = None,
               process_set=None) -> torch.Tensor:
     """Every process receives root's value (reference:
     torch/mpi_ops.py:345-389); the input is left as it is.
-    Differentiable like the reference."""
-    if _differentiable(tensor):
-        if torch.compiler.is_compiling():
-            _trace_fail(NotImplementedError, _NO_GRAPH_GRADIENT % "broadcast")
+    Differentiable like the reference (in a compiled graph through the
+    in-graph gather's own gradient)."""
+    if _differentiable(tensor) and not torch.compiler.is_compiling():
         return _BroadcastFn.apply(tensor, root_rank, name, process_set)
     return synchronize(broadcast_async(tensor, root_rank, name=name,
                                        process_set=process_set))

@@ -21,7 +21,6 @@ both: ``Compression.fp16`` is bfloat16 (same exponent range as fp32),
 """
 
 import torch
-import torch.distributed as dist
 
 
 class Compressor:
@@ -123,15 +122,17 @@ def int8_pack_reduce(flat: torch.Tensor, residual, group=None,
     ``group`` None, or a group of one, quantizes and dequantizes locally,
     so the residual is still exercised. ``average`` divides by the group's
     size after the exact integer sum. The wire calls run through
-    ``collectives.run_in_order``."""
-    from .mesh import group_allgather, group_allreduce
+    ``collectives.run_in_order``; while torch.compile traces, they are
+    in-graph collectives (the group's size a constant of the graph) and
+    the numerics stay these."""
+    from .mesh import group_allgather, group_allreduce, group_size
     x = flat.to(torch.float32)
     if residual is not None:
         x = x + residual.to(torch.float32)
     absmax = torch.max(torch.abs(x))
-    n = 1 if group is None else dist.get_world_size(group)
+    n = 1 if group is None else group_size(group)
     if n > 1:
-        absmax, = group_allreduce([absmax], group, dist.ReduceOp.MAX)
+        absmax, = group_allreduce([absmax], group, "max")
     scale = torch.maximum(true_divide(absmax, 127.0), torch.full(
         (), torch.finfo(torch.float32).tiny, device=x.device))
     # torch.round rounds half to even, as jnp.round does

@@ -164,7 +164,7 @@ def flatten_bucket(vals: Sequence[torch.Tensor]):
     if len(vals) == 1:
         return vals[0].reshape(-1), lambda r: [r.reshape(shapes[0])]
     flat = torch.cat([v.reshape(-1) for v in vals])
-    sizes = [int(np.prod(s, dtype=np.int64)) for s in shapes]
+    sizes = [v.numel() for v in vals]
 
     def unflatten(r):
         return [piece.view(s) for piece, s in

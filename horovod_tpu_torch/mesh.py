@@ -24,7 +24,7 @@ dim names. :func:`flat_group` is one group over the product of several
 dims (one collective over two axes at once), and :func:`group_allreduce`
 and :func:`group_allgather` are the compiled plane's wire calls, each run
 through ``collectives.run_in_order``; while ``torch.compile`` traces,
-:func:`group_allreduce` is the in-graph collective instead
+each is the in-graph collective instead
 (``torch.distributed._functional_collectives``).
 """
 
@@ -149,24 +149,26 @@ def group_size(group) -> int:
 # marks, see collectives._trace_constant)
 group_size._dynamo_marked_constant = True
 
-_FUNCTIONAL_OPS = {dist.ReduceOp.SUM: "sum", dist.ReduceOp.MIN: "min",
-                   dist.ReduceOp.MAX: "max"}
+_WIRE_OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
+             "max": dist.ReduceOp.MAX}
 
 
 def group_allreduce(tensors: Sequence[torch.Tensor], group,
-                    op=dist.ReduceOp.SUM) -> List[torch.Tensor]:
-    """``tensors`` (one dtype) reduced over ``group`` with ``op`` in ONE
-    wire call on their concatenation (a new buffer; the inputs are not
-    written), split back into their shapes. While torch.compile traces,
-    one in-graph collective on the list instead."""
+                    op: str = "sum") -> List[torch.Tensor]:
+    """``tensors`` (one dtype) reduced over ``group`` with ``op`` ("sum",
+    "min" or "max") in ONE wire call on their concatenation (a new buffer;
+    the inputs are not written), split back into their shapes. While
+    torch.compile traces, one in-graph collective on the list instead
+    (``op`` is a string: the compiler of some torch releases cannot hash
+    a ``dist.ReduceOp``)."""
     from .collectives import _injit_all_reduce, run_in_order
     if torch.compiler.is_compiling():
-        return _injit_all_reduce(list(tensors), _FUNCTIONAL_OPS[op], group)
+        return _injit_all_reduce(list(tensors), op, group)
     if len(tensors) == 1:
         buf = tensors[0].detach().reshape(-1).clone()
     else:
         buf = torch.cat([t.detach().reshape(-1) for t in tensors])
-    run_in_order(lambda: dist.all_reduce(buf, op=op, group=group),
+    run_in_order(lambda: dist.all_reduce(buf, op=_WIRE_OPS[op], group=group),
                  [buf], [buf])
     sizes = [t.numel() for t in tensors]
     return [piece.view(t.shape) for piece, t in
@@ -174,8 +176,11 @@ def group_allreduce(tensors: Sequence[torch.Tensor], group,
 
 
 def group_allgather(t: torch.Tensor, group) -> torch.Tensor:
-    """Every member's ``t`` stacked in group order: shape (n,) + t.shape."""
-    from .collectives import _all_gather_single, run_in_order
+    """Every member's ``t`` stacked in group order: shape (n,) + t.shape.
+    While torch.compile traces, one in-graph all-gather instead."""
+    from .collectives import _all_gather, _all_gather_single, run_in_order
+    if torch.compiler.is_compiling():
+        return _all_gather(t.unsqueeze(0), 0, group)
     n = dist.get_world_size(group)
     src = t.detach().contiguous()
     out = torch.empty(n * src.numel(), dtype=t.dtype, device=t.device)

@@ -29,12 +29,13 @@ on a CUDA tensor (counting its launches at run time) and the plain version
 on a CPU one; its fake gives out like q and lse (BH, S_q) fp32; its
 gradient is :func:`flash_bwd_plain`, as the autograd Function's, as the
 operator ``hvd_tpu::flash_bwd`` (:func:`flash_bwd_op`). Integer
-offsets only (a sequence-parallel step, whose offsets are device tensors,
-stays eager). Eager calls go through :class:`FlashAttentionFunction` as
-before: it takes those tensor offsets, which the op's schema does not, so
-both wrappers stay until the op takes them (ROADMAP A5); then every call
-can go through the op, once its eager dispatch cost at the host-bound BH
-12 shapes has been measured.
+offsets only: a compiled ring step (``parallel.ring_attention``) passes
+its global offsets as Python ints, constants of its process's graph, so
+every step of a compiled ring is this op at nonzero offsets. Eager calls
+go through :class:`FlashAttentionFunction` as before, which also takes
+device-tensor offsets (the eager ring's). Merging the two wrappers is
+ROADMAP P16, once the op's eager dispatch cost at the host-bound BH 12
+shapes has been measured.
 """
 
 import ctypes

@@ -70,16 +70,21 @@ dispatcher: the eager plane's every gradient (a missing one as zeros, so
 that every process traces the same collectives) through the in-jit
 grouped allreduce (``collectives``' in-jit route: packed buckets of
 ``HVD_TPU_INJIT_PACKED_THRESHOLD``, one collective each, over the
-DeviceMesh in scope or the world), the compiled plane's over its mesh
-dims as above (hierarchical or flat, packed or per-leaf, the bf16 wire),
-and neither issues the Join marker or feeds the autotuner. Its hooks
-would reduce each gradient eagerly after a compiled backward too, so the
-eager plane refuses to reduce in a graph until :meth:`remove_hooks`.
-int8 with error feedback, Adasum and ``grad_process_sets`` raise
-NotImplementedError under compile (ROADMAP A5, A6). torch's own
+DeviceMesh in scope or the world; Adasum as the route lowers it), or,
+with ``grad_process_sets``, one in-graph all-reduce per bucket of this
+plane's own plan over the bucket's process set, with the eager verb's
+layout and numerics (:func:`.collectives._injit_set_reduce`); the
+compiled plane's over its mesh dims as above (hierarchical or flat,
+packed or per-leaf, the bf16 wire, int8 with its residuals written back
+from the graph, Adasum through :func:`.adasum.adasum_grads`). Neither
+issues the Join marker or feeds the autotuner. Its hooks would reduce
+each gradient eagerly after a compiled backward too, so the eager plane
+refuses to reduce in a graph until :meth:`remove_hooks`. torch's own
 optimizers break the graph in ``step()`` (their ``_use_grad``), so a
 ``fullgraph`` region compiles ``synchronize()`` and the inner optimizer
-steps outside it.
+steps outside it; the Adasum delta optimizer's call is divided the same
+way (:meth:`_DistributedAdasumDeltaOptimizer.stage_deltas` eagerly,
+then its compiled ``step()``).
 """
 
 import time
@@ -87,6 +92,7 @@ import zlib
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from . import basics as _basics
 from . import collectives as _c
@@ -105,6 +111,13 @@ def _packed_threshold() -> int:
     if _basics.is_initialized():
         return _basics.world().config.get(_config.INJIT_PACKED_THRESHOLD)
     return _config.Config().get(_config.INJIT_PACKED_THRESHOLD)
+
+
+def _group_of(process_set) -> tuple:
+    """(group name, size) of a process set (None: the world)."""
+    if process_set is None:
+        return dist.group.WORLD.group_name, dist.get_world_size()
+    return process_set.group.group_name, process_set.num_procs
 
 
 def _check_args(op, axis_name, compression, reduce_strategy,
@@ -293,6 +306,11 @@ class DistributedOptimizer:
             self._bucket_reduction += [kind] * len(buckets)
         self._bucket_of = {id(p): bi for bi, b in
                            enumerate(self._bucket_members) for p in b}
+        #: (group name, size) of each bucket's process set, for the
+        #: reduction in a compiled graph
+        self._bucket_groups = [_group_of(ps) for ps, _ in
+                               self._bucket_reduction] if self._sharded \
+            else []
         self._threshold = threshold
         self.plans.append((threshold, [[self._names[id(p)] for p in b]
                                        for b in self._bucket_members]))
@@ -443,26 +461,34 @@ class DistributedOptimizer:
                 "without its gradient hooks, which would also reduce each "
                 "gradient eagerly after the backward: call remove_hooks() "
                 "first")
-        if self._sharded or self._op == _c.Adasum:
-            _c._trace_fail(
-                NotImplementedError,
-                "grad_process_sets (ROADMAP A5) and op=Adasum (ROADMAP A6) "
-                "do not reduce in a compiled graph yet; step eagerly")
         # a missing gradient contributes zeros: a parameter that has one on
         # some processes only must not change the bucket plan, and so the
         # collectives, of the others
-        grads, ctxs = [], []
+        grads, ctxs = {}, {}
         for p in self._hooked:
             g = p.grad if p.grad is not None else torch.zeros_like(p)
-            compressed, ctx = self._compression.compress(
+            grads[id(p)], ctxs[id(p)] = self._compression.compress(
                 g if self._bpps == 1 else g / self._bpps)
-            grads.append(compressed)
-            ctxs.append(ctx)
-        outs = _c.grouped_allreduce(grads, op=self._op,
-                                    prescale_factor=self._prescale,
-                                    postscale_factor=self._postscale)
+        if self._sharded:
+            # each bucket over its process set, as _fire_bucket sends it
+            outs = {}
+            for members, (_, scale), (group, n) in zip(
+                    self._bucket_members, self._bucket_reduction,
+                    self._bucket_groups):
+                reduced = _c._injit_set_reduce(
+                    [grads[id(p)] for p in members], group, n,
+                    self._prescale, self._postscale * scale)
+                for p, r in zip(members, reduced):
+                    outs[id(p)] = r
+            outs = [outs[id(p)] for p in self._hooked]
+        else:
+            outs = _c.grouped_allreduce([grads[id(p)] for p in self._hooked],
+                                        op=self._op,
+                                        prescale_factor=self._prescale,
+                                        postscale_factor=self._postscale)
         with torch.no_grad():
-            for p, out, ctx in zip(self._hooked, outs, ctxs):
+            for p, out in zip(self._hooked, outs):
+                ctx = ctxs[id(p)]
                 g = self._compression.decompress(out, ctx)
                 if p.grad is None:
                     p.grad = g.clone()
@@ -515,7 +541,16 @@ class _DistributedAdasumDeltaOptimizer(DistributedOptimizer):
     """Adasum on optimizer DELTAS: each hook steps the wrapped optimizer on
     its parameter alone (its ``param_groups`` narrowed to it), stages the
     movement ``-lr·f(g)`` and rolls the parameter back; ``step()``
-    Adasum-combines the deltas and advances the parameters by them."""
+    Adasum-combines the deltas and advances the parameters by them.
+
+    Under torch.compile the call is divided in two, because torch's
+    optimizers break the graph in ``step()`` (their ``_use_grad``) and
+    ``fullgraph`` refuses the break: :meth:`stage_deltas`, called eagerly
+    with the hooks removed, takes every parameter's delta as the hooks
+    would (the wrapped optimizer's per-parameter steps run as they run
+    eagerly); then ``step()`` compiled combines those deltas in the graph
+    (the in-jit Adasum: an all-gather and the tree a delta) and advances
+    the parameters, bit for bit the eager step's."""
 
     def __init__(self, optimizer, named_parameters=None, op=_c.Adasum,
                  backward_passes_per_step: int = 1,
@@ -530,6 +565,18 @@ class _DistributedAdasumDeltaOptimizer(DistributedOptimizer):
             backward_passes_per_step=backward_passes_per_step,
             compression=compression, **kwargs)
         self._start: Dict[int, torch.Tensor] = {}
+        #: the deltas of stage_deltas(), which a compiled step() combines
+        self._deltas: Optional[List[torch.Tensor]] = None
+
+    def stage_deltas(self) -> None:
+        """Before a compiled ``step()``, eagerly and with the hooks
+        removed: step the wrapped optimizer on each parameter alone and
+        keep its delta (zeros for a parameter without a gradient, so that
+        every process traces the same collectives)."""
+        self._deltas = [
+            self._compression.compress(self._stage_payload(p))[0]
+            if p.grad is not None else torch.zeros_like(p)
+            for p in self._hooked]
 
     def _stage_payload(self, p) -> torch.Tensor:
         with torch.no_grad():
@@ -560,11 +607,24 @@ class _DistributedAdasumDeltaOptimizer(DistributedOptimizer):
         with torch.no_grad():
             p.data.add_(out)
 
+    def _step_in_graph(self, closure) -> None:
+        if self._hooks_on or self._deltas is None or closure is not None:
+            _c._trace_fail(
+                ValueError,
+                "the Adasum delta optimizer's compiled step() combines the "
+                "deltas of stage_deltas(): call remove_hooks() once, then "
+                "stage_deltas() eagerly before each compiled step(), which "
+                "takes no closure")
+        outs = _c.grouped_allreduce(self._deltas, op=_c.Adasum)
+        with torch.no_grad():
+            for p, out in zip(self._hooked, outs):
+                p.add_(self._compression.decompress(out, p.dtype))
+        self._deltas = None
+
     def step(self, closure=None):
         if torch.compiler.is_compiling():
-            _c._trace_fail(NotImplementedError,
-                           "the Adasum delta optimizer does not step in a "
-                           "compiled graph yet (ROADMAP A6); step eagerly")
+            self._step_in_graph(closure)
+            return None
         loss = closure() if closure is not None else None
         # parameters whose hooks did not fire this step but carry a
         # gradient contribute their delta now, so every process issues the
@@ -654,18 +714,14 @@ class _CompiledPlaneOptimizer(DistributedOptimizer):
     def synchronize(self) -> None:
         """Reduce every gradient (a missing one as zeros) and write the
         results back, in one closure on the dispatcher thread (under
-        torch.compile: in the graph)."""
+        torch.compile: in the graph, the int8 residuals written back from
+        it)."""
         grads = []
         for _, p in self._params:
             g = p.grad if p.grad is not None else torch.zeros_like(p)
             grads.append(g if self._bpps == 1 else g / self._bpps)
         out: List[torch.Tensor] = []
         if torch.compiler.is_compiling():
-            if self._op == _c.Adasum or self._residual is not None:
-                _c._trace_fail(
-                    NotImplementedError,
-                    "Compression.int8 and op=Adasum do not reduce in a "
-                    "compiled graph yet (ROADMAP A6); reduce eagerly")
             out = self._reduce(grads)
         else:
             _c.run_in_order(lambda: out.extend(self._reduce(grads)), grads,

@@ -29,6 +29,15 @@ package's ``param_shardings``):
   the output of a row-parallel product);
 * :func:`all_reduce_max`: the max of the vocab-parallel softmax (no
   gradient: the max only shifts the exponent for range).
+
+While ``torch.compile`` traces (``torch.compiler.is_compiling()``), each
+wire call is the in-graph collective of ``torch.distributed.
+_functional_collectives`` on the same group instead, and the autograd
+Functions around them keep their backward: the shift is one
+``all_to_all_single`` with this member's split sizes (as
+``collectives.ppermute``), whose transpose is the inverse shift; the
+all-to-all, the all-gather and reduce-scatter and the sums are their
+functional counterparts, which move and sum the same buffers.
 """
 
 from typing import Optional, Sequence, Tuple
@@ -36,11 +45,18 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from ..collectives import run_in_order
+from ..collectives import (_all_gather, _functional, _reduce_scatter, _shift,
+                           run_in_order)
 
 
 def _exchange(tensors: Sequence[torch.Tensor], group, dst: Optional[int],
               src: Optional[int]) -> Tuple[torch.Tensor, ...]:
+    if torch.compiler.is_compiling():
+        # the tensors in one buffer, shifted in one in-graph call
+        flat = _shift(torch.cat([t.reshape(-1) for t in tensors]), group,
+                      dist.get_world_size(group), dst, src)
+        return tuple(piece.view(t.shape) for piece, t in zip(
+            torch.split(flat, [t.numel() for t in tensors]), tensors))
     sends = [t.contiguous() for t in tensors]
     recvs = [torch.empty_like(t) if src is not None else torch.zeros_like(t)
              for t in sends]
@@ -85,6 +101,8 @@ def ring_shift(tensors, group) -> Tuple[torch.Tensor, ...]:
 
 def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     x = x.contiguous()   # all_to_all_single splits and writes dim 0 flat
+    if torch.compiler.is_compiling():
+        return _functional().all_to_all_single(x, None, None, group)
     out = torch.empty_like(x)
     run_in_order(lambda: dist.all_to_all_single(out, x, group=group),
                  [x], [out])
@@ -109,12 +127,24 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     return _AllToAll.apply(group, x)
 
 
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def _all_reduce(x: torch.Tensor, op: str, group) -> torch.Tensor:
+    """``x`` reduced over ``group`` with ``op`` ("sum" or "max") into a new
+    contiguous tensor."""
+    if torch.compiler.is_compiling():
+        return _functional().all_reduce(x.contiguous(), op, group)
+    x = x.clone(memory_format=torch.contiguous_format)
+    run_in_order(lambda: dist.all_reduce(x, op=_REDUCE_OPS[op], group=group),
+                 [], [x])
+    return x
+
+
 class _SumReplicated(torch.autograd.Function):
     @staticmethod
     def forward(ctx, group, x):
-        x = x.clone(memory_format=torch.contiguous_format)
-        run_in_order(lambda: dist.all_reduce(x, group=group), [], [x])
-        return x
+        return _all_reduce(x, "sum", group)
 
     @staticmethod
     def backward(ctx, g):
@@ -133,6 +163,8 @@ def sum_replicated(x: torch.Tensor, group) -> torch.Tensor:
 def _gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     n = dist.get_world_size(group)
     xs = x.movedim(dim, 0).contiguous()
+    if torch.compiler.is_compiling():
+        return _all_gather(xs, 0, group).movedim(0, dim)
     out = torch.empty((n * xs.shape[0],) + tuple(xs.shape[1:]),
                       dtype=x.dtype, device=x.device)
     def wire():
@@ -146,6 +178,8 @@ def _gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
 def _scatter_dim(g: torch.Tensor, dim: int, group) -> torch.Tensor:
     n = dist.get_world_size(group)
     gs = g.movedim(dim, 0).contiguous()
+    if torch.compiler.is_compiling():
+        return _reduce_scatter(gs, 0, group).movedim(0, dim)
     out = torch.empty((gs.shape[0] // n,) + tuple(gs.shape[1:]),
                       dtype=g.dtype, device=g.device)
     def wire():
@@ -183,9 +217,7 @@ class _CopyToGroup(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.clone(memory_format=torch.contiguous_format)
-        run_in_order(lambda: dist.all_reduce(g, group=ctx.group), [], [g])
-        return None, g
+        return None, _all_reduce(g, "sum", ctx.group)
 
 
 def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
@@ -199,7 +231,4 @@ def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
 def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
     """Elementwise max of ``x`` over ``group`` (a new tensor; not
     differentiable)."""
-    x = x.detach().clone(memory_format=torch.contiguous_format)
-    run_in_order(lambda: dist.all_reduce(x, op=dist.ReduceOp.MAX,
-                                         group=group), [], [x])
-    return x
+    return _all_reduce(x.detach(), "max", group)

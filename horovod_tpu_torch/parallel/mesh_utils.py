@@ -448,7 +448,9 @@ class MeshSharding:
       loss (the logits stay sharded over tp: the max and the sum of the
       softmax are reduced over tp, never the 32000-wide logits).
 
-    Axes of size 1 run no collective."""
+    Axes of size 1 run no collective. Each is a wire call of ``comm``, so
+    in a compiled forward (``make_transformer_train_step(compiled=True)``)
+    each is its in-graph collective, with the same transpose."""
 
     def __init__(self, mesh, specs: Mapping[str, ShardSpec],
                  owners: Optional[Mapping[str, int]] = None):

@@ -14,12 +14,16 @@ a later source not at all.
 flash kernel (``ops/flash_attention.py``; its plain version on a CPU
 tensor) with the global offsets ``my*S`` and ``src*S`` as int32 tensors on
 the device and fp32 output, then merges the step's partial result through
-its log-sum-exp. ``impl="xla"`` is the JAX package's blockwise fp32
-recurrence, in plain PyTorch. Both are exact attention.
+its log-sum-exp. While ``torch.compile`` traces, the offsets are Python
+ints instead, constants of this process's graph (as its rank is), so each
+step is the custom op ``hvd_tpu::flash_fwd``, and each step stays
+checkpointed (recomputed in backward) inside the graph. ``impl="xla"`` is
+the JAX package's blockwise fp32 recurrence, in plain PyTorch. Both are
+exact attention.
 """
 
 import functools
-from typing import Iterable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -96,19 +100,31 @@ def _flash_step(q, k_blk, v_blk, o, lse, q_off, k_off, causal: bool):
     return o * w_old + o_i * w_new, lse_new
 
 
-def _ring_flash(q, blocks: Iterable[Tuple[torch.Tensor, torch.Tensor]],
+Block = Tuple[torch.Tensor, torch.Tensor]
+
+
+def _ring_flash(q, block: Callable[[int, Optional[Block]], Block],
                 my: int, n: int, causal: bool, out_dtype):
-    """The n merge steps of member ``my``; ``blocks`` yields the K/V block
-    held at each step, in ring order (step i holds source (my - i) % n)."""
+    """The n merge steps of member ``my``; ``block(i, held)`` gives the
+    K/V block held at step i (source (my - i) % n) from the one held at
+    step i - 1 (None at step 0)."""
     out_dtype = out_dtype or q.dtype
     B, S, H, D = q.shape
     o = torch.zeros(B, S, H, D, dtype=torch.float32, device=q.device)
     lse = torch.full((B, S, H), NEG_INF, dtype=torch.float32,
                      device=q.device)
-    for i, (k_blk, v_blk) in enumerate(blocks):
+    compiling = torch.compiler.is_compiling()
+    held = None
+    for i in range(n):
+        held = block(i, held)
+        k_blk, v_blk = held
         src = (my - i) % n
-        args = (q, k_blk, v_blk, o, lse, offset_tensor(my * S, q.device),
-                offset_tensor(src * S, q.device), causal)
+        if compiling:
+            offsets = (my * S, src * S)
+        else:
+            offsets = (offset_tensor(my * S, q.device),
+                       offset_tensor(src * S, q.device))
+        args = (q, k_blk, v_blk, o, lse, *offsets, causal)
         if torch.is_grad_enabled():
             # backward re-runs the kernel instead of keeping each step's
             # partial output, as the JAX package's compiled path does
@@ -116,13 +132,6 @@ def _ring_flash(q, blocks: Iterable[Tuple[torch.Tensor, torch.Tensor]],
         else:
             o, lse = _flash_step(*args)
     return o.to(out_dtype)
-
-
-def _rotating_blocks(k, v, group, n: int):
-    for i in range(n):
-        yield k, v
-        if i + 1 < n:  # the final rotation is unnecessary
-            k, v = ring_shift((k, v), group)
 
 
 def ring_attention_flash(q, k, v, group, causal: bool = True,
@@ -145,8 +154,12 @@ def ring_attention_flash(q, k, v, group, causal: bool = True,
     """
     n = dist.get_world_size(group)
     my = dist.get_rank(group)
-    return _ring_flash(q, _rotating_blocks(k, v, group, n), my, n, causal,
-                       out_dtype)
+
+    def rotate(i, held):
+        # the block of step i - 1 shifted one member on (the final
+        # rotation is unnecessary, so there are n - 1 shifts)
+        return (k, v) if held is None else ring_shift(held, group)
+    return _ring_flash(q, rotate, my, n, causal, out_dtype)
 
 
 def ring_attention_local(q, kv_blocks, my: int, causal: bool = True,
@@ -159,8 +172,8 @@ def ring_attention_local(q, kv_blocks, my: int, causal: bool = True,
     n = len(kv_blocks)
     if not 0 <= my < n:
         raise ValueError(f"ring position {my} out of range for {n} blocks")
-    blocks = (kv_blocks[(my - i) % n] for i in range(n))
-    return _ring_flash(q, blocks, my, n, causal, out_dtype)
+    return _ring_flash(q, lambda i, held: kv_blocks[(my - i) % n], my, n,
+                       causal, out_dtype)
 
 
 def make_ring_attention(group, causal: bool = True):

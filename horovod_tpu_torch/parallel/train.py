@@ -34,21 +34,28 @@ does. At tp = fsdp = 1 the step is the unsharded one, launch for launch.
 program (``jax.jit(_step, donate_argnums=(0, 1))``,
 ``horovod_tpu/parallel/train.py:120-125``): the step runs two regions
 compiled with ``torch.compile(fullgraph=True)``, so a graph break raises
-instead of falling back. (a) The forward and the loss, with the flash
-kernel as the custom op ``hvd_tpu::flash_fwd``; ``loss.backward()`` then
-runs the compiled backward outside it (a backward inside a compiled
-region breaks the graph). (b) The gradient reduction in the graph
-(``DistributedOptimizer.synchronize`` under compile: the in-jit grouped
-allreduce, one collective per packed bucket). The inner optimizer then
-steps eagerly, as the eager step's does (torch's optimizers break the
-graph in ``step()``), so any optimizer is taken and the update is the
-eager step's, bit for bit. The optimizer runs without its hooks. The
-regions compile with
+instead of falling back. (a) The forward and the loss on this process's
+block of the global batch, with the flash kernel as the custom op
+``hvd_tpu::flash_fwd`` and, on a mesh, the sharded forward's collectives
+in the graph (``comm``'s in-graph branches: the ring's shifts at int
+offsets, Ulysses' all-to-alls, fsdp's gathers, tp's sums and the
+vocab-parallel loss); ``loss.backward()`` then runs the compiled
+backward, with their transposes, outside it (a backward inside a
+compiled region breaks the graph). (b) The gradient reduction in the
+graph (``DistributedOptimizer.synchronize`` under compile: the in-jit
+grouped allreduce, one collective per packed bucket, or with tp or fsdp
+one all-reduce per bucket over its ``grad_process_sets`` set). The inner
+optimizer then steps eagerly on the local blocks, as the eager step's
+does (torch's optimizers break the graph in ``step()``), so any
+optimizer is taken and the update is the eager step's. The optimizer
+runs without its hooks, and on a mesh the returned loss is the global
+mean, as the eager mesh step's. The regions compile with
 ``compile_backend`` (inductor by default; the CPU tests pass
 "aot_eager") through a recording backend, which notes each compiled
-graph's region, nodes, in-graph all-reduces and flash ops in
-``bundle.compile_log``. Data parallelism only: a mesh with tp, fsdp or
-sp > 1 raises (ROADMAP A5).
+graph's region, nodes, in-graph all-reduces, all-gathers,
+reduce-scatters and all-to-alls and flash ops in ``bundle.compile_log``
+(counted over the graph and its subgraphs: an autograd Function's
+forward and backward, a checkpointed ring step).
 
 The mesh train-state helpers (:func:`train_state_tree`,
 :func:`run_mesh_step`, :func:`save_mesh_train_state`,
@@ -126,23 +133,33 @@ class TrainStepBundle:
     #: the parameters' layout on the mesh (tp > 1 or fsdp > 1), else None
     sharding: Optional[MeshSharding] = None
     #: compiled=True: one entry per compiled graph ({"region": "forward"
-    #: or "reduce", "nodes", "all_reduces", "flash_ops"})
+    #: or "reduce", "nodes", "all_reduces", "all_gathers",
+    #: "reduce_scatters", "all_to_alls", "flash_ops"})
     compile_log: Optional[list] = None
     #: compiled=True: the step's compiled regions, (forward(tokens,
     #: targets, pos_offset) -> loss, reduce()), for timing them apart
     regions: Optional[tuple] = None
 
 
+#: compile_log's keys: the in-graph operations each counts
+_LOGGED_OPS = {"all_reduces": "_c10d_functional.all_reduce",
+               "all_gathers": "all_gather_into_tensor",
+               "reduce_scatters": "reduce_scatter_tensor",
+               "all_to_alls": "all_to_all_single",
+               "flash_ops": "hvd_tpu.flash_fwd"}
+
+
 def _recording_backend(backend: str, region: str, log: list):
     """A torch.compile backend that notes the graph Dynamo hands it in
-    ``log`` and compiles it with ``backend``."""
+    ``log`` (its nodes, and the operations of ``_LOGGED_OPS`` in it and
+    its subgraphs) and compiles it with ``backend``."""
     def compile_fn(gm, example_inputs):
-        ops = [str(n.target) for n in gm.graph.nodes
-               if n.op == "call_function"]
+        ops = [str(n.target) for m in gm.modules()
+               if isinstance(m, torch.fx.GraphModule)
+               for n in m.graph.nodes if n.op == "call_function"]
         log.append({"region": region, "nodes": len(gm.graph.nodes),
-                    "all_reduces": sum("_c10d_functional.all_reduce" in o
-                                       for o in ops),
-                    "flash_ops": sum("hvd_tpu.flash_fwd" in o for o in ops)})
+                    **{key: sum(op in o for o in ops)
+                       for key, op in _LOGGED_OPS.items()}})
         from torch._dynamo import lookup_backend
         return lookup_backend(backend)(gm, example_inputs)
     return compile_fn
@@ -191,12 +208,6 @@ def make_transformer_train_step(
                              f"sequence shard; sp > 1 takes attention="
                              f"'flash' and attention_kind 'ring' or "
                              f"'ulysses'")
-        if compiled and any(axis_size(mesh, a) > 1
-                            for a in ("tp", "fsdp", "sp")):
-            raise ValueError("compiled=True runs data parallelism only; a "
-                             "mesh with tp, fsdp or sp > 1 steps eagerly "
-                             "until the compiled mesh step lands (ROADMAP "
-                             "A5)")
         attn = sharded_attention(mesh, attention_kind) or attn
         if axis_size(mesh, "tp") > 1 or axis_size(mesh, "fsdp") > 1:
             shapes = {n: tuple(p.shape) for n, p in
@@ -218,7 +229,8 @@ def make_transformer_train_step(
         grad_process_sets=sets)
 
     if compiled:
-        return _compiled_bundle(cfg, model, opt, dev, mesh, compile_backend)
+        return _compiled_bundle(cfg, model, opt, dev, mesh, sharding,
+                                compile_backend)
 
     def step(tokens, targets):
         pos_offset = 0
@@ -243,7 +255,7 @@ def make_transformer_train_step(
                            sharding=sharding)
 
 
-def _compiled_bundle(cfg, model, opt, dev, mesh,
+def _compiled_bundle(cfg, model, opt, dev, mesh, sharding,
                      backend: str) -> TrainStepBundle:
     """The bundle of ``compiled=True``: regions (a) and (b) of the module
     docstring around the eager backward."""
@@ -252,6 +264,8 @@ def _compiled_bundle(cfg, model, opt, dev, mesh,
 
     def forward_loss(tokens, targets, pos_offset):
         logits = model(tokens, pos_offset)
+        if sharding is not None:
+            return sharding.cross_entropy(logits, targets)
         return F.cross_entropy(logits.reshape(-1, cfg.vocab_size),
                                targets.reshape(-1).long())
 
@@ -263,7 +277,7 @@ def _compiled_bundle(cfg, model, opt, dev, mesh,
 
     def step(tokens, targets):
         pos_offset = 0
-        if mesh is not None:   # this rank's rows of the global batch
+        if mesh is not None:   # this rank's block of the global batch
             rows, cols = batch_spec(mesh, *tokens.shape[:2])
             tokens, targets = tokens[rows, cols], targets[rows, cols]
             pos_offset = cols.start
@@ -277,7 +291,8 @@ def _compiled_bundle(cfg, model, opt, dev, mesh,
         return _c.allreduce(loss.detach(), op=_c.Average, name="mesh.loss")
 
     return TrainStepBundle(model=model, optimizer=opt, step=step, mesh=mesh,
-                           compile_log=log, regions=(forward, reduce))
+                           sharding=sharding, compile_log=log,
+                           regions=(forward, reduce))
 
 
 # -- the mesh train state: run / save / restore / drain (the JAX package's

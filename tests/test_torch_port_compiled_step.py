@@ -16,8 +16,6 @@ tests/test_torch_port_transformer.py's atol 1e-5: the same arithmetic in
 fp32, reductions ordered differently (XLA against PyTorch).
 """
 
-import types
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -230,20 +228,6 @@ def test_compiled_step_matches_the_jax_jitted_step(world):
     for name, t in comp.model.state_dict().items():
         np.testing.assert_allclose(t.numpy(), final[name], rtol=0,
                                    atol=1e-5, err_msg=name)
-
-
-def test_compiled_step_takes_data_parallelism_only():
-    """A mesh with tp, fsdp or sp > 1 raises (the compiled mesh step is
-    ROADMAP A5), before any model is built."""
-    for dims in ((1, 1, 2, 1), (1, 2, 1, 1), (1, 1, 1, 2)):
-        mesh = types.SimpleNamespace(
-            device_type="cpu", mesh_dim_names=("dp", "fsdp", "tp", "sp"),
-            shape=dims)
-        with pytest.raises(ValueError, match="ROADMAP A5"):
-            make_transformer_train_step(
-                TransformerConfig(**TINY, dtype=torch.float32),
-                device="cpu", mesh=mesh, compiled=True,
-                compile_backend=BACKEND)
 
 
 def test_compiled_reduction_fills_a_missing_gradient_with_zeros(world):

@@ -355,7 +355,10 @@ def _stub(delay_s):
 
 def test_hedge_beats_slow_stub_replica(monkeypatch):
     monkeypatch.setenv("HVD_TPU_FLEET_HEDGE_QUANTILE", "0.9")
-    fast, slow = _stub(0.1), _stub(4.0)
+    # the fast replica's answer time is the hedge delay (the latency
+    # quantile of the warm-up), and the window in which the second
+    # request must be routed while the first is still outstanding there
+    fast, slow = _stub(0.5), _stub(4.0)
     router = _router("port", {
         "f-fast": f"http://127.0.0.1:{fast.server_address[1]}",
         "s-slow": f"http://127.0.0.1:{slow.server_address[1]}"})
@@ -370,9 +373,21 @@ def test_hedge_beats_slow_stub_replica(monkeypatch):
             t0 = time.monotonic()
             code = _post(router.url + "/v1/generate", doc)[0]
             results[tag] = (code, time.monotonic() - t0)
+        def wait_outstanding(replica, count):
+            deadline = time.monotonic() + 30
+            while router.outstanding(replica) != count:
+                assert time.monotonic() < deadline, (replica, count)
+                time.sleep(0.001)
+        # a warm-up request answered later than the hedge delay was hedged
+        # onto the slow replica, which holds that slot until its answer:
+        # both replicas idle first, so the first request goes to the fast
+        # one and the second finds it the busier
+        wait_outstanding("s-slow", 0)
         a = threading.Thread(target=client, args=("a",))
         a.start()
-        time.sleep(0.02)
+        # the second request starts once the first is outstanding at the
+        # fast replica, however late the first thread was scheduled
+        wait_outstanding("f-fast", 1)
         b = threading.Thread(target=client, args=("b",))
         b.start()
         a.join(30), b.join(30)

@@ -29,7 +29,8 @@ import horovod_tpu as jhvd
 from horovod_tpu.compression import Compression as JCompression
 
 from torch_port_injit_worker import (N, PLANE_SHAPES, PLANE_VARIANTS,
-                                      inputs, plane_grads, run_world)
+                                      gather_weights, inputs, plane_grads,
+                                      run_world)
 
 try:
     from jax import shard_map as _shard_map
@@ -107,6 +108,17 @@ def _jax_references():
         jhvd.grouped_allreduce([u, v, w], op=jhvd.Sum)), a, b, h)
     ref.update({f"verbs.grouped.{k}": g.astype(np.float32)
                 for k, g in enumerate(grouped)})
+    ref["adasum"] = _per_device(lambda v: jhvd.allreduce(v, op=jhvd.Adasum),
+                                x)
+    w = gather_weights()
+    gmesh = Mesh(np.array(jax.devices()[:N]), ("dp",))
+    for verb, fn, wv in (("allgather", jhvd.allgather, w),
+                         ("broadcast", lambda v: jhvd.broadcast(v, 1),
+                          w[:, :x.shape[1]])):
+        f = _smap(lambda v, u, fn=fn: jnp.sum(fn(v[0]) * u[0])[None], gmesh,
+                  (P("dp"), P("dp")), P("dp"))
+        ref[f"{verb}_grad"] = np.asarray(jax.jit(jax.grad(
+            lambda v, f=f, wv=wv: f(v, wv).sum()))(jnp.asarray(x)))
     ref["verbs.allgather"] = _per_device(jhvd.allgather, a)
     ref["verbs.allgather0"] = _per_device(jhvd.allgather, s)
     ref.update({f"verbs.grouped_broadcast.{k}": g for k, g in enumerate(
@@ -269,16 +281,16 @@ def test_unmapped_reduces_over_the_world_as_the_eager_verb(world):
     ("process_set", "ValueError", "process_set"),
     ("ragged_alltoall", "ValueError", "uniform splits only"),
     ("root_range", "ValueError", "root_rank 2 out of range"),
-    ("adasum", "NotImplementedError", "ROADMAP A6"),
+    ("adasum_several_dims", "ValueError", "needs an explicit hierarchy"),
     ("unbound_axis", "NameError", "unbound axis name"),
     ("hooks_on", "ValueError", "remove_hooks"),
-    ("int8", "NotImplementedError", "ROADMAP A6"),
-    ("allgather_grad", "NotImplementedError", "ROADMAP A6"),
 ])
 def test_trace_time_errors(world, case, kind, match):
     """tests/test_injit.py's fast-path-disabled and process_set cases,
     and the contracts of the route: each raises while the graph is
-    traced, as the compiler's error whose cause it is."""
+    traced, as the compiler's error whose cause it is (Adasum with a
+    mesh of two dims in scope: the JAX package's own error for several
+    mapped axes)."""
     _, infos = world
     for info in infos:
         got = info["errors"][case]
@@ -295,6 +307,30 @@ def test_allreduce_gradient_in_the_graph(world):
     upstream = np.arange(32, dtype=np.float32).reshape(8, 4)
     np.testing.assert_array_equal(_rows(arrays, "allreduce_grad"),
                                   np.stack([2.0 * upstream] * N))
+
+
+def test_adasum_verb_over_the_mesh_in_the_graph(world, jax_ref):
+    """allreduce(op=Adasum) traced under the 1-D mesh: the JAX in-jit
+    verb over "dp" within rtol 1e-4, atol 1e-5 (tests/test_adasum.py's
+    bound: the tree's dot products sum in another order), and the eager
+    verb over the same two processes bit for bit."""
+    arrays, _ = world
+    got = _rows(arrays, "adasum_mesh")
+    np.testing.assert_allclose(got, jax_ref["adasum"], rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(got, _rows(arrays, "adasum_eager"))
+
+
+@pytest.mark.parametrize("verb", ["allgather", "broadcast"])
+def test_gather_gradient_in_the_graph(world, jax_ref, verb):
+    """The gradient of allgather (the reduce-scatter of the cotangents
+    onto this rank's rows) and of broadcast from rank 1 (the cotangents'
+    sum at the root, zeros at rank 0) in the graph against jax.grad
+    through the JAX in-jit verbs: sums of two values, bit for bit."""
+    arrays, _ = world
+    got = _rows(arrays, f"{verb}_grad")
+    np.testing.assert_array_equal(got, jax_ref[f"{verb}_grad"])
+    if verb == "broadcast":
+        assert got[1].any() and not got[0].any()
 
 
 def test_eager_path_untouched(world):

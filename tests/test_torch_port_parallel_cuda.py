@@ -41,8 +41,22 @@ Per rank the RESULT line also carries the peak device memory of each
 mesh's steps and the bytes of this rank's parameters and AdamW state: at
 fsdp = 4 they must be at most 0.26 of the whole (a quarter, and the
 replicated LayerNorm parameters).
+
+Then the compiled mesh step: every mesh again with
+``compiled=True`` (inductor, fullgraph: the sharded forward's collectives,
+their transposes and the ``grad_process_sets`` reduction in the graph)
+beside the eager step on the same world, weights and data, at full width
+and COMPILED_LAYERS layers (inductor takes 110-155 s to compile the
+12-layer step, and a world compiles one step a mesh). The compiled
+losses are held to the eager ones with chip_smoke.py's compiled-phase
+tolerances: 1e-4 relative at step 1, 1e-2 later (inductor's fused
+kernels round bf16 activations in another order). Each rank's RESULT
+line carries both steps' seconds, the compile step's seconds, the
+compiled reduction's ms (one more call of the compiled region, CUDA
+events) and each compiled graph's collectives.
 """
 
+import dataclasses
 import faulthandler
 import json
 import os
@@ -65,8 +79,13 @@ from horovod_tpu_torch.parallel import (  # noqa: E402
 STEPS = 3
 BATCH = 8
 TOL_LOSS = (1e-3, 1e-3, 0.1)
-#: each world's time limit (the worlds take about a minute each)
-WORKER_SECONDS = {"reference": 240, "mesh": 720, "order": 150}
+#: each world's time limit (the worlds take about a minute each, and the
+#: compiled meshes a few more)
+WORKER_SECONDS = {"reference": 240, "mesh": 1320, "order": 150}
+#: the compiled mesh steps' depth, and their losses' relative tolerance
+#: against the eager step at the same depth (step 1, later steps)
+COMPILED_LAYERS = 2
+TOL_COMPILED = (1e-4, 1e-2, 1e-2)
 #: the share of the whole train state one rank may hold at fsdp = 4
 FSDP4_STATE_SHARE = 0.26
 #: the order worlds' steps, and each step's limit (a step takes < 0.4 s)
@@ -133,6 +152,43 @@ def _train(cfg, tokens, targets, mesh=None, kind="ring", keep=False):
     bundle.optimizer.remove_hooks()
     del bundle
     torch.cuda.empty_cache()
+    return out
+
+
+def _train_compiled(cfg, tokens, targets, mesh, kind):
+    """The mesh's eager and compiled steps from the same weights (seed 0)
+    and data: losses, step seconds, the compiled step's compile seconds,
+    its reduction's ms and graphs."""
+    out = {"layers": cfg.num_layers}
+    for mode in ("eager", "compiled"):
+        bundle = make_transformer_train_step(
+            cfg, mesh=mesh, attention_kind=kind,
+            generator=torch.Generator(device="cuda").manual_seed(0),
+            compiled=mode == "compiled")
+        if bundle.sharding is None:
+            hvd.broadcast_parameters(bundle.model.state_dict(), root_rank=0)
+        losses, seconds = [], []
+        for _ in range(STEPS):
+            t0 = time.perf_counter()
+            losses.append(bundle.step(tokens, targets).item())
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        out[f"{mode}_losses"] = losses
+        out[f"{mode}_step_seconds"] = seconds
+        if mode == "compiled":
+            out["compile_step_seconds"] = seconds[0]
+            out["graphs"] = bundle.compile_log
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            bundle.regions[1]()
+            end.record()
+            end.synchronize()
+            out["compiled_reduce_ms"] = start.elapsed_time(end)
+        bundle.optimizer.remove_hooks()
+        del bundle
+        torch.compiler.reset()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -335,6 +391,11 @@ def _worker(mode: str, *args) -> int:
             _log(label, "trained", out[label]["losses"])
             if mc.sp > 1:
                 out[label]["comm"] = _comm_ms(mesh, cfg)
+        ccfg = dataclasses.replace(cfg, num_layers=COMPILED_LAYERS)
+        for label, mc, kind in _meshes(n):
+            out[label]["compiled"] = _train_compiled(
+                ccfg, tokens, targets, make_training_mesh(mc), kind)
+            _log(label, "compiled", out[label]["compiled"])
     hvd.barrier()
     hvd.shutdown()
     print("RESULT " + json.dumps(out), flush=True)
@@ -375,6 +436,17 @@ def test_nccl_mesh_training_matches_one_card(n):
                 assert r["state_bytes"] <= \
                     FSDP4_STATE_SHARE * ref["state_bytes"], (label, r)
     assert ref["flash_launches"] == cfg.num_layers * STEPS
+    # the compiled mesh steps against the eager ones at their depth
+    for label, mc, kind in _meshes(n):
+        runs = [r[label]["compiled"] for r in results]
+        assert all(c["compiled_losses"] == runs[0]["compiled_losses"]
+                   for c in runs), label
+        for got, want, tol in zip(runs[0]["compiled_losses"],
+                                  runs[0]["eager_losses"], TOL_COMPILED):
+            assert abs(got - want) <= tol * abs(want), (label, runs[0])
+        for c in runs:
+            assert [g["region"] for g in c["graphs"]] == ["forward",
+                                                          "reduce"], c
     if n == 4:
         for r in results:
             ck = r["checkpoint"]

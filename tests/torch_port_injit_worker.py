@@ -44,6 +44,13 @@ def inputs(n=N):
     }
 
 
+def gather_weights(n=N):
+    """Each rank's loss weights of the gathers' gradient cases: (n * 8, 4)
+    rows, against x's (8, 4)."""
+    rng = np.random.RandomState(13)
+    return rng.standard_normal((n, n * 8, 4)).astype(np.float32)
+
+
 def plane_grads(n=N, seed=0):
     rng = np.random.RandomState(seed)
     return {k: np.stack([rng.standard_normal(s).astype(np.float32)
@@ -186,13 +193,30 @@ def world_main(out_dir: str) -> int:
         "ragged", lambda x: hvd.alltoall(x, splits=[3, 5]))(x))
     error("root_range", lambda: compiled(
         "root", lambda x: hvd.broadcast(x, root_rank=N))(x))
-    error("adasum", lambda: compiled(
-        "adasum", lambda x: hvd.allreduce(x, op=hvd.Adasum))(x))
+    with mesh_1x2:
+        error("adasum_several_dims", lambda: compiled(
+            "adasum_several", lambda x: hvd.allreduce(x, op=hvd.Adasum))(x))
     error("unbound_axis", lambda: compiled(
         "unbound", lambda x: C.psum(x, "dp"))(x))
     xg = x.clone().requires_grad_()
-    error("allgather_grad", lambda: compiled(
-        "allgather_grad", lambda x: hvd.allgather(x))(xg))
+
+    # Adasum over the mesh's dim, in the graph and eagerly
+    with mesh:
+        keep("adasum_mesh", compiled("adasum_mesh", lambda x: hvd.allreduce(
+            x, op=hvd.Adasum))(x))
+    keep("adasum_eager", hvd.allreduce(x, op=hvd.Adasum))
+
+    # allgather's and broadcast's gradients in the graph: each rank's
+    # loss weights its gathered (or broadcast) rows by its row of w
+    w = torch.from_numpy(np.array(gather_weights()[r]))
+    for verb, fn, wv in (("allgather", hvd.allgather, w),
+                         ("broadcast", lambda v: hvd.broadcast(v, 1),
+                          w[:x.shape[0]])):
+        xv = x.clone().requires_grad_()
+        with mesh:
+            compiled(f"{verb}_grad", lambda v, wv: (fn(v) * wv).sum())(
+                xv, wv).backward()
+        keep(f"{verb}_grad", xv.grad)
 
     # allreduce keeps its gradient in the graph: the same allreduce of
     # the upstream gradient, as eagerly

@@ -251,10 +251,11 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def run_world(tmp, cross, local, device="cpu", timeout=240):
-    """A world of cross x local processes of this worker (gloo on the
-    CPU, NCCL on ``cross * local`` cards); returns (per-rank npz dicts,
-    per-rank info dicts)."""
+def run_world(tmp, cross, local, device="cpu", timeout=240, script=HERE):
+    """A world of cross x local processes of this worker, or of another
+    ``script`` taking the same ``world <dir> <device>`` arguments (gloo
+    on the CPU, NCCL on ``cross * local`` cards); returns (per-rank npz
+    dicts, per-rank info dicts)."""
     port, n = _free_port(), cross * local
     procs = []
     for rank in range(n):
@@ -268,7 +269,7 @@ def run_world(tmp, cross, local, device="cpu", timeout=240):
                    + os.environ.get("PYTHONPATH", ""))
         env.pop("HVD_TPU_INJIT_PACKED_THRESHOLD", None)
         procs.append(subprocess.Popen(
-            [sys.executable, HERE, "world", str(tmp), device], env=env,
+            [sys.executable, script, "world", str(tmp), device], env=env,
             cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             text=True))
     deadline = time.monotonic() + timeout
