@@ -66,10 +66,15 @@ Telemetry and chaos sites of the dispatch path, as in the JAX package:
 * **timeline** (:mod:`.timeline`): the verb's top-level span opens at
   submit and the wire activity (``NCCL_ALLREDUCE``, ``GLOO_ALLGATHER``,
   ...) spans the data's wire calls on the dispatcher;
-* **schedule ledger and request tracing** (:mod:`._schedule`,
-  :mod:`.tracing`): every submission is recorded in the ledger
-  (``HVD_TPU_SCHEDULE_CHECK``) and, when the submitting thread works for
-  a sampled request, as a ``collective:<verb>:<name>`` span.
+* **schedule ledger and tracing** (:mod:`._schedule`, :mod:`.tracing`):
+  every submission is recorded in the ledger (``HVD_TPU_SCHEDULE_CHECK``)
+  and, when the submitting thread works for a sampled request or a
+  traced training step, spanned as ``collective:<verb>:<name>``; the
+  handle carries that span's context to the dispatcher, which emits
+  ``dispatch.queue`` (the wait in its queue) and ``dispatch.run`` (the
+  closure, with the consistency check's outcome) under it. The host's
+  reads of device values on the step path are counted in
+  :data:`HOST_SYNCS` and spanned as ``host.sync``.
 
 **The in-jit route** (the JAX package's ``_injit_*``, its
 ``docs/injit.md``): a verb called while ``torch.compile`` traces
@@ -235,6 +240,9 @@ _WIRE_OP = {ReduceOp.AVERAGE: dist.ReduceOp.SUM,
 #: wire calls that move a verb's data, by verb (one per ``dist`` call; the
 #: consistency, size and split-table exchanges are not counted)
 COUNTS = {"allreduce": 0, "broadcast": 0, "allgather": 0, "alltoall": 0}
+#: reads of a device value by the host on the training step's path (the
+#: host waits there for the device to run everything queued before it)
+HOST_SYNCS = 0
 
 _HALF = (torch.float16, torch.bfloat16)
 _SHUT_DOWN = "Horovod has been shut down; collective was not dispatched."
@@ -522,44 +530,66 @@ def run_in_order(fn, inputs=(), outputs=()):
     return out
 
 
-def _submit(w, h: Handle, kind: str, inputs, check, run) -> int:
+def _submit(w, h: Handle, kind: str, inputs, check, run,
+            span=None) -> int:
     """Hand verb ``kind`` to the dispatcher: its timeline span opens now;
     on the dispatcher its fault site fires, ``check`` (the consistency
     exchange) runs, the dispatcher's stream waits for the caller's, and
-    ``run`` moves the data inside the wire activity."""
-    order = _stream_order(w)
-    h.order = order
-    tl = w.timeline
-    name = h.name
-    tl.start(name, kind)
+    ``run`` moves the data inside the wire activity. ``span``, the
+    submission's trace span from :func:`_record_round`, closes once the
+    item is queued; the dispatcher spans its queue wait and its run
+    under it."""
+    try:
+        order = _stream_order(w)
+        h.order = order
+        tl = w.timeline
+        name = h.name
+        tl.start(name, kind)
+        nbytes = _nbytes(inputs)
+        trace = queued = None
+        if span is not None:
+            span.annotate(bytes=nbytes, tensors=len(inputs))
+            trace, queued = span.context(), time.monotonic()
 
-    def dispatch():
-        check()
-        if order is not None:
-            order.enter(inputs)
-        tl.activity_start(name, _tl.wire_activity(w.backend, kind))
-        out = run()
-        tl.activity_end(name)
-        # close the verb's own span, opened at submit (the JAX package
-        # leaves it open, so later spans nest inside it in a viewer)
-        tl.end(name)
-        if order is not None:
-            order.leave()
-        return out
-    _dispatcher(w).submit(h, _observed(w, kind, _nbytes(inputs), dispatch))
-    return h.id
+        def work(sp=None):
+            consistency = check()
+            if sp is not None:
+                sp.annotate(consistency=consistency)
+            if order is not None:
+                order.enter(inputs)
+            tl.activity_start(name, _tl.wire_activity(w.backend, kind))
+            out = run()
+            tl.activity_end(name)
+            # close the verb's own span, opened at submit (the JAX package
+            # leaves it open, so later spans nest inside it in a viewer)
+            tl.end(name)
+            if order is not None:
+                order.leave()
+            return out
+
+        def dispatch():
+            if trace is None:
+                return work()
+            with _tracing.dispatch_span(trace, queued) as sp:
+                return work(sp)
+        _dispatcher(w).submit(h, _observed(w, kind, nbytes, dispatch))
+        return h.id
+    finally:
+        if span is not None:
+            span.__exit__(None, None, None)
 
 
 # ---------------------------------------------------------------------------
 # Consistency exchange (controller.cc:378-611 analogue)
 # ---------------------------------------------------------------------------
 
-def _check_consistency(w, wm, name, shape, dtype, kind, extra=""):
+def _check_consistency(w, wm, name, shape, dtype, kind, extra="") -> str:
     """Cross-process metadata validation: all-gathers (exchange sequence
     number, metadata fingerprint) across the set and raises listing the
     processes that differ. Skipped in a set of one and when
     ``HVD_TPU_CHECK_CONSISTENCY=0``; a fingerprint validated once is not
-    exchanged again until the response cache evicts it.
+    exchanged again until the response cache evicts it. Returns what
+    happened: ``skipped``, ``cached`` or ``exchanged``.
 
     The cache decision is per process, so processes that submit different
     sequences (the user error this check exists for) may skip an exchange
@@ -567,7 +597,7 @@ def _check_consistency(w, wm, name, shape, dtype, kind, extra=""):
     on the next exchange. A process that never exchanges again is caught
     by the stall inspector."""
     if wm.num_procs <= 1 or not w.config.get(_config.CHECK_CONSISTENCY):
-        return
+        return "skipped"
     if callable(extra):
         extra = extra()
     fp = metadata_fingerprint(name, shape, dtype, kind, extra)
@@ -575,7 +605,7 @@ def _check_consistency(w, wm, name, shape, dtype, kind, extra=""):
     with w.consistency_lock:
         if w.response_cache.lookup(cache_key):
             _M_CONSISTENCY_CACHED.inc()
-            return
+            return "cached"
         w.consistency_seq = (w.consistency_seq + 1) & 0x7FFFFFFF
         words = _exchange_ints(w, wm, [w.consistency_seq, fp])
         seqs = [s for s, _ in words]
@@ -610,6 +640,7 @@ def _check_consistency(w, wm, name, shape, dtype, kind, extra=""):
                 f"identical requests for the same tensor name." + join_hint)
         _M_CONSISTENCY_EXCHANGED.inc()
         w.response_cache.put(cache_key)
+        return "exchanged"
 
 
 # ---------------------------------------------------------------------------
@@ -1102,11 +1133,11 @@ def _allreduce_submit(tensors, grouped, average, name, op, prescale,
     shapes = tuple(tuple(t.shape) for t in ts)
     dtypes = tuple(t.dtype for t in ts)
     if grouped:
-        _record_round(w, (kind, name, shapes, dtypes, op.value, prescale,
-                          postscale), process_set)
+        span = _record_round(w, (kind, name, shapes, dtypes, op.value,
+                                 prescale, postscale), process_set)
     else:
-        _record_round(w, (kind, name, shapes[0], dtypes[0], op.value,
-                          prescale, postscale), process_set)
+        span = _record_round(w, (kind, name, shapes[0], dtypes[0], op.value,
+                                 prescale, postscale), process_set)
     # join state at submit: a collective submitted before join() carries
     # real data even if the dispatcher runs it after
     joined_at_submit = w.joined
@@ -1114,18 +1145,17 @@ def _allreduce_submit(tensors, grouped, average, name, op, prescale,
     def check():
         if grouped:
             wire_dtypes = tuple(dtype_str(d) for d in dtypes)
-            _check_consistency(w, wm, name, (len(ts),), "grouped", kind,
-                               extra=lambda: f"{shapes}|{wire_dtypes}"
-                                             f"|{op.value}")
-        else:
-            _check_consistency(w, wm, name, shapes[0], dtypes[0], kind,
-                               op.value)
+            return _check_consistency(
+                w, wm, name, (len(ts),), "grouped", kind,
+                extra=lambda: f"{shapes}|{wire_dtypes}|{op.value}")
+        return _check_consistency(w, wm, name, shapes[0], dtypes[0], kind,
+                                  op.value)
 
     def run():
         vals = [torch.zeros_like(t) for t in ts] if joined_at_submit else ts
         outs = _reduce(w, wm, vals, op, prescale, postscale)
         return outs if grouped else outs[0]
-    return _submit(w, h, kind, ts, check, run)
+    return _submit(w, h, kind, ts, check, run, span)
 
 
 def allreduce_async(tensor, average=None, name: Optional[str] = None,
@@ -1291,14 +1321,15 @@ def allgather_async(tensor, name: Optional[str] = None,
     t = _input(w, tensor)
     name = name or _auto_name(w, "allgather")
     h = w.tensor_table.begin(name, "allgather")
-    _record_round(w, ("allgather", name, tuple(t.shape), t.dtype),
-                  process_set)
+    span = _record_round(w, ("allgather", name, tuple(t.shape), t.dtype),
+                         process_set)
 
     def check():
         # only non-first dims must match across processes
-        _check_consistency(w, wm, name, t.shape[1:], t.dtype, "allgather")
+        return _check_consistency(w, wm, name, t.shape[1:], t.dtype,
+                                  "allgather")
     return _submit(w, h, "allgather", [t], check,
-                   lambda: _allgather(w, wm, t))
+                   lambda: _allgather(w, wm, t), span)
 
 
 class _AllgatherFn(torch.autograd.Function):
@@ -1390,19 +1421,19 @@ def broadcast_async(tensor, root_rank: int, name: Optional[str] = None,
     t = _input(w, tensor)
     name = name or _auto_name(w, "broadcast")
     h = w.tensor_table.begin(name, "broadcast")
-    _record_round(w, ("broadcast", name, tuple(t.shape), t.dtype, root_rank),
-                  process_set)
+    span = _record_round(w, ("broadcast", name, tuple(t.shape), t.dtype,
+                             root_rank), process_set)
 
     def check():
-        _check_consistency(w, wm, name, t.shape, t.dtype, "broadcast",
-                           str(root_rank))
+        return _check_consistency(w, wm, name, t.shape, t.dtype, "broadcast",
+                                  str(root_rank))
 
     def run():
         buf = _on_device(w, t)
         dist.broadcast(buf, src=wm.global_rank(root_rank), group=wm.group)
         COUNTS["broadcast"] += 1
         return buf.to(t.device)
-    return _submit(w, h, "broadcast", [t], check, run)
+    return _submit(w, h, "broadcast", [t], check, run, span)
 
 
 class _BroadcastFn(torch.autograd.Function):
@@ -1470,9 +1501,10 @@ def broadcast_(tensor: torch.Tensor, root_rank: int,
     _input(w, tensor)
     name = name or _auto_name(w, "broadcast")
     h = w.tensor_table.begin(name, "broadcast")
+    span = None
     try:
-        _record_round(w, ("broadcast", name, tuple(tensor.shape),
-                          tensor.dtype, root_rank), process_set)
+        span = _record_round(w, ("broadcast", name, tuple(tensor.shape),
+                                 tensor.dtype, root_rank), process_set)
         order = _stream_order(w)
         tl = w.timeline
         tl.start(name, "broadcast")
@@ -1502,6 +1534,8 @@ def broadcast_(tensor: torch.Tensor, root_rank: int,
         if order is not None:
             order.land([tensor])
     finally:
+        if span is not None:
+            span.__exit__(None, None, None)
         w.tensor_table.finish(h)
     return tensor
 
@@ -1524,17 +1558,16 @@ def grouped_broadcast_async(tensors: Sequence, root_rank: int,
     h = w.tensor_table.begin(name, "grouped_broadcast")
     shapes = tuple(tuple(t.shape) for t in ts)
     dtypes = tuple(t.dtype for t in ts)
-    _record_round(w, ("grouped_broadcast", name, shapes, dtypes, root_rank),
-                  process_set)
+    span = _record_round(w, ("grouped_broadcast", name, shapes, dtypes,
+                             root_rank), process_set)
 
     def check():
         wire_dtypes = tuple(dtype_str(d) for d in dtypes)
-        _check_consistency(w, wm, name, (len(ts),), "grouped",
-                           "grouped_broadcast",
-                           extra=lambda: f"{shapes}|{wire_dtypes}|"
-                                         f"{root_rank}")
+        return _check_consistency(
+            w, wm, name, (len(ts),), "grouped", "grouped_broadcast",
+            extra=lambda: f"{shapes}|{wire_dtypes}|{root_rank}")
     return _submit(w, h, "grouped_broadcast", ts, check,
-                   lambda: _broadcast_flat(w, wm, ts, root_rank))
+                   lambda: _broadcast_flat(w, wm, ts, root_rank), span)
 
 
 def grouped_broadcast(tensors: Sequence, root_rank: int,
@@ -1575,12 +1608,13 @@ def alltoall_async(tensor, splits=None, name: Optional[str] = None,
                          "to the tensor's first dimension")
     name = name or _auto_name(w, "alltoall")
     h = w.tensor_table.begin(name, "alltoall")
-    _record_round(w, ("alltoall", name, tuple(t.shape), t.dtype,
-                      tuple(splits)), process_set)
+    span = _record_round(w, ("alltoall", name, tuple(t.shape), t.dtype,
+                             tuple(splits)), process_set)
 
     def check():
         # splits are per-process data (alltoallv), not metadata
-        _check_consistency(w, wm, name, t.shape[1:], t.dtype, "alltoall")
+        return _check_consistency(w, wm, name, t.shape[1:], t.dtype,
+                                  "alltoall")
 
     def run():
         table = [splits] if nproc == 1 else _exchange_ints(w, wm, splits)
@@ -1593,7 +1627,7 @@ def alltoall_async(tensor, splits=None, name: Optional[str] = None,
                                input_split_sizes=splits, group=wm.group)
         COUNTS["alltoall"] += 1
         return out.to(t.device)
-    return _submit(w, h, "alltoall", [t], check, run)
+    return _submit(w, h, "alltoall", [t], check, run, span)
 
 
 def alltoall(tensor, splits=None, name: Optional[str] = None,
@@ -1713,24 +1747,26 @@ def _wire_entry(entry) -> tuple:
     return tuple(conv(x) for x in entry)
 
 
-def _record_round(w, entry, pset=None) -> None:
+def _record_round(w, entry, pset=None):
+    """Record a submission; returns its entered trace span, or None."""
     # schedule ledger first (HVD_TPU_SCHEDULE_CHECK, _schedule.py): the
     # join markers are part of the cross-rank schedule even though the
-    # replay log below excludes them; then the request tracer
-    # (HVD_TPU_TRACE_SAMPLE, tracing.py). Both are a global load and an
-    # is-None test when off.
+    # replay log below excludes them; then the tracer (HVD_TPU_TRACE_SAMPLE
+    # or a profiler, tracing.py). Both are a global load and an is-None
+    # test when off.
     _sched.record(_wire_entry(entry), pset)
-    _tracing.collective(entry)
-    if w.size == 1 or entry[1].startswith(("hvd.join.",
-                                           "horovod_tpu.join.")):
-        return
-    w.join_round_log.append(entry)
+    span = _tracing.collective(entry)
+    if w.size > 1 and not entry[1].startswith(("hvd.join.",
+                                               "horovod_tpu.join.")):
+        w.join_round_log.append(entry)
+    return span
 
 
 def join_round() -> int:
     """Round marker for cooperative Join: returns how many processes still
     have data. Training wrappers call it once per step; custom loops that
     want Join semantics must do the same."""
+    global HOST_SYNCS
     w = _world()
     if w.world_mesh.num_procs == 1:
         return 0 if w.joined else 1
@@ -1742,7 +1778,9 @@ def join_round() -> int:
     # replay script for join()
     w.join_last_round = w.join_round_log
     w.join_round_log = []
-    return int(round(float(out[0])))
+    HOST_SYNCS += 1
+    with _tracing.span("host.sync", {"what": "join marker"}):
+        return int(round(float(out[0])))
 
 
 def _replay_round(w, entries) -> None:

@@ -24,6 +24,16 @@ is timed for it (with a device sync, only while tuning), and the buckets
 are re-planned at the step boundary after the threshold changes
 (``plans`` lists every plan).
 
+Each step is a trace ``step-<n>`` of :mod:`.tracing` when the tracer
+samples it (``HVD_TPU_TRACE_SAMPLE``), and its spans also open profiler
+ranges while a ``torch.profiler`` session records: ``opt.step`` from the
+first bucket's submission (the one step-start timestamp, which the
+autotuner reads too) to the end of ``step()``, the buckets' collective
+spans under it, ``opt.drain`` with ``opt.wait`` for each bucket and the
+join marker's ``host.sync``, then ``opt.update``. The instance holds the
+step's trace, since the hooks run on the autograd engine's thread; off,
+each site costs an is-None test.
+
 ``grad_process_sets`` (the sharded training mesh,
 ``parallel.mesh_utils.grad_process_sets``) gives a parameter's gradient
 its own process set and scale: it is summed over that set and multiplied
@@ -97,6 +107,7 @@ import torch.distributed as dist
 from . import basics as _basics
 from . import collectives as _c
 from . import config as _config
+from . import tracing as _tracing
 from .compression import Compression, int8_pack_reduce, true_divide
 from .fusion import flatten_bucket, packed_apply, plan_buckets
 
@@ -280,6 +291,24 @@ class DistributedOptimizer:
         self._compression = compression
         self._prescale = 1.0 / gradient_predivide_factor
         self._postscale = gradient_predivide_factor
+        #: steps taken (the trace id's n) and this step's trace, if any
+        self._steps = 0
+        self._trace: Optional[_tracing.StepTrace] = None
+
+    def _begin_trace(self, t0: float) -> Optional[_tracing.StepTrace]:
+        """This step's trace, begun at ``t0``, with the counters its root
+        reports as changes."""
+        tr = _tracing.step_trace(self._steps, t0)
+        if tr is not None:
+            tr.args.update(buckets=0, bytes=0,
+                           wire_calls=-_c.COUNTS["allreduce"],
+                           host_syncs=-_c.HOST_SYNCS)
+        return tr
+
+    def _end_trace(self, tr: _tracing.StepTrace) -> None:
+        tr.args["wire_calls"] += _c.COUNTS["allreduce"]
+        tr.args["host_syncs"] += _c.HOST_SYNCS
+        tr.close()
 
     def _configured_threshold(self) -> int:
         if self._fixed_threshold is not None:
@@ -374,6 +403,8 @@ class DistributedOptimizer:
             return
         if self._t_first_fire is None:
             self._t_first_fire = time.perf_counter()
+            if self._trace is None:
+                self._trace = self._begin_trace(self._t_first_fire)
         members = [p for p in self._bucket_members[bid] if id(p) in ready]
         # a stable name across steps (the response cache validates each
         # bucket once), with the member names' digest and the partial
@@ -386,18 +417,31 @@ class DistributedOptimizer:
                 f"{len(members)}of{len(self._bucket_members[bid])}"
                 f".{digest:08x}")
         tensors = [ready[id(p)] for p in members]
+        tr = self._trace
+        if tr is None:
+            h = self._submit_bucket(bid, tensors, name)
+        else:
+            # the bucket's collective span nests under the step's root
+            prev = _tracing.set_current(tr.ctx)
+            try:
+                h = self._submit_bucket(bid, tensors, name)
+            finally:
+                _tracing.set_current(prev)
+            tr.args["buckets"] += 1
+            tr.args["bytes"] += _c._nbytes(tensors)
+        self._handles.append((h, members, bid))
+        self._fired_ids.update(id(p) for p in members)
+
+    def _submit_bucket(self, bid: int, tensors, name: str) -> int:
         if self._sharded:
             process_set, scale = self._bucket_reduction[bid]
-            h = _c.grouped_allreduce_async(
+            return _c.grouped_allreduce_async(
                 tensors, op=_c.Sum, prescale_factor=self._prescale,
                 postscale_factor=self._postscale * scale, name=name,
                 process_set=process_set)
-        else:
-            h = _c.grouped_allreduce_async(
-                tensors, op=self._op, prescale_factor=self._prescale,
-                postscale_factor=self._postscale, name=name)
-        self._handles.append((h, members))
-        self._fired_ids.update(id(p) for p in members)
+        return _c.grouped_allreduce_async(
+            tensors, op=self._op, prescale_factor=self._prescale,
+            postscale_factor=self._postscale, name=name)
 
     # torch optimizer protocol ----------------------------------------------
     def _apply_result(self, p, out) -> None:
@@ -415,8 +459,13 @@ class DistributedOptimizer:
             # the round marker of cooperative Join (uneven data): joined
             # processes pair it with their replay loop
             _c.join_round()
-        for h, members in self._handles:
-            outs = _c.synchronize(h)
+        tr = self._trace
+        for h, members, bid in self._handles:
+            if tr is None:
+                outs = _c.synchronize(h)
+            else:
+                with _tracing.span("opt.wait", {"bucket": bid}):
+                    outs = _c.synchronize(h)
             for p, out in zip(members, outs):
                 self._apply_result(p, self._compression.decompress(
                     out, self._ctxs.pop(id(p), None)))
@@ -451,7 +500,14 @@ class DistributedOptimizer:
         if torch.compiler.is_compiling():
             self._reduce_in_graph()
             return
-        self._flush_and_drain()
+        if self._trace is None:
+            self._trace = self._begin_trace(time.perf_counter())
+        tr = self._trace
+        if tr is None:
+            self._flush_and_drain()
+            return
+        with tr.child("opt.drain"):
+            self._flush_and_drain()
 
     def _reduce_in_graph(self) -> None:
         if self._hooks_on:
@@ -507,10 +563,28 @@ class DistributedOptimizer:
         self._holding = False
         self._held = []
         self._t_first_fire = None
+        self._trace = None
 
     def step(self, closure=None):
-        self.synchronize()
-        return self._opt.step(closure)
+        if torch.compiler.is_compiling():
+            self.synchronize()
+            return self._opt.step(closure)
+        # the step's trace, begun here unless a bucket's submission began
+        # it, ends with the wrapped optimizer's step
+        if self._trace is None:
+            self._trace = self._begin_trace(time.perf_counter())
+        tr = self._trace
+        try:
+            self.synchronize()
+            if tr is None:
+                return self._opt.step(closure)
+            with tr.child("opt.update"):
+                return self._opt.step(closure)
+        finally:
+            self._trace = None
+            self._steps += 1
+            if tr is not None:
+                self._end_trace(tr)
 
     def zero_grad(self, set_to_none: bool = True):
         return self._opt.zero_grad(set_to_none=set_to_none)
@@ -603,6 +677,11 @@ class _DistributedAdasumDeltaOptimizer(DistributedOptimizer):
         # _DistributedAdasumOptimizer.synchronize is a no-op)
         pass
 
+    def _begin_trace(self, t0: float):
+        # the delta optimizer's trace is begun by step() alone, and spans
+        # opt.step and opt.update (the combination and the advance)
+        return None
+
     def _apply_result(self, p, out) -> None:
         with torch.no_grad():
             p.data.add_(out)
@@ -625,19 +704,29 @@ class _DistributedAdasumDeltaOptimizer(DistributedOptimizer):
         if torch.compiler.is_compiling():
             self._step_in_graph(closure)
             return None
-        loss = closure() if closure is not None else None
-        # parameters whose hooks did not fire this step but carry a
-        # gradient contribute their delta now, so every process issues the
-        # same collectives (reference: step()'s missing_p path)
-        staged = {pid for ready in self._bucket_ready.values()
-                  for pid in ready}
-        for p in self._hooked:
-            if id(p) in self._fired_ids or id(p) in staged \
-                    or p.grad is None:
-                continue
-            self._stage(p)
-        self._flush_and_drain()
-        return loss
+        tr = _tracing.step_trace(self._steps, time.perf_counter())
+        self._steps += 1
+        try:
+            loss = closure() if closure is not None else None
+            # parameters whose hooks did not fire this step but carry a
+            # gradient contribute their delta now, so every process issues
+            # the same collectives (reference: step()'s missing_p path)
+            staged = {pid for ready in self._bucket_ready.values()
+                      for pid in ready}
+            for p in self._hooked:
+                if id(p) in self._fired_ids or id(p) in staged \
+                        or p.grad is None:
+                    continue
+                self._stage(p)
+            if tr is None:
+                self._flush_and_drain()
+            else:
+                with tr.child("opt.update"):
+                    self._flush_and_drain()
+            return loss
+        finally:
+            if tr is not None:
+                tr.close()
 
     def zero_grad(self, set_to_none: bool = True):
         if self._handles or any(self._bucket_ready.values()):
@@ -701,6 +790,14 @@ class _CompiledPlaneOptimizer(DistributedOptimizer):
                                              device=p.device)
                               for n, p in self._params}
 
+    # its trace is opt.step and opt.update: no buckets are fired, and its
+    # wire calls bypass collectives.COUNTS
+    def _begin_trace(self, t0: float):
+        return _tracing.step_trace(self._steps, t0)
+
+    def _end_trace(self, tr) -> None:
+        tr.close()
+
     # gradients stay local until synchronize(): nothing to hold or drop
     def hold_gradients(self) -> None:
         pass
@@ -732,10 +829,6 @@ class _CompiledPlaneOptimizer(DistributedOptimizer):
                     p.grad = g.clone()
                 else:
                     p.grad.copy_(g)
-
-    def step(self, closure=None):
-        self.synchronize()
-        return self._opt.step(closure)
 
     def state_dict(self):
         sd = self._opt.state_dict()

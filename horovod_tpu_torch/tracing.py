@@ -1,21 +1,28 @@
-"""Per-request distributed tracing for horovod_tpu_torch (a copy of
-``horovod_tpu/tracing.py``; the span names, the span record, the sampling
-hash and the header encoding are the JAX package's, so one merge tool
-reads both packages' span files). Of the spans below, the port emits
-``server.infer``, ``batch.queue``, ``batch.forward`` and the collective
-spans; the router and generation spans come with those planes.
+"""Per-request and per-step distributed tracing for horovod_tpu_torch (a
+copy of ``horovod_tpu/tracing.py``; the span names, the span record, the
+sampling hash and the header encoding are the JAX package's, so one
+merge tool reads both packages' span files), extended with the training
+step's trace, which the JAX package has not.
 
 The chrome-tracing timeline (timeline.py) answers *what was this
-process doing*; this module answers *where did this request's time go*
-across every process it touched. A trace is keyed by the serving
-request id (``X-HVD-TPU-Request-Id``) and is made of spans — one named
-interval per layer the request crossed:
+process doing*; this module answers *where did this request's, or this
+training step's, time go* across every process it touched. A trace is
+keyed by the serving request id (``X-HVD-TPU-Request-Id``) or, for a
+training step, by ``step-<n>`` (n counts the optimizer's steps, the same
+on every rank), and is made of spans — one named interval per layer the
+request or step crossed. The port emits every span below:
 
 ==========================  =================================================
 span                        emitted by
 ==========================  =================================================
 ``router.route``            ``FleetRouter._proxy`` — root span on the router
 ``router.admission``        ``FairScheduler.acquire`` (fair-queue wait)
+``router.attempt``          one forwarded try of the request (the first send,
+                            a hedge, a failover, a resume), args
+                            ``attempt``, ``replica``
+``disagg.offer``            the router's offer of a prefill's KV blocks to
+                            the decode replica
+``disagg.transfer``         the decode replica's fetch of those blocks
 ``server.infer`` /          replica HTTP handler; child of the router span
 ``server.generate``         via the ``X-HVD-TPU-Trace-Parent`` header
 ``batch.queue``             MicroBatcher admission -> dispatch coalescing wait
@@ -24,9 +31,34 @@ span                        emitted by
 ``gen.decode``              one span per decode step that emitted a token
 ``gen.preempt``             KV-block preemption (the recompute is the next
                             ``gen.prefill`` under the same trace)
-``collective:<verb>:<name>``  eager collective submission, via the
-                            ``collectives._record_round`` hook
+``opt.step``                root of a training step: DistributedOptimizer
+                            from the step's first bucket submission (in the
+                            backward) to the end of ``step()``; args
+                            ``buckets``, ``bytes``, ``wire_calls`` (the
+                            change in ``collectives.COUNTS["allreduce"]``)
+                            and ``host_syncs`` (the change in
+                            ``collectives.HOST_SYNCS``)
+``collective:<verb>:<name>``  an eager collective's submission on the
+                            submitting thread (args ``bytes``, ``tensors``),
+                            under the request or step the thread works for
+``dispatch.queue``          submit -> the dispatcher thread takes the item
+``dispatch.run``            the dispatched closure (consistency check, wire
+                            call, scale, split), arg ``consistency``:
+                            ``cached``, ``exchanged`` or ``skipped``
+``opt.drain``               ``synchronize()``: partly ready buckets fired,
+                            the join marker, the waits, the write-back
+``host.sync``               a read of a device value on the step path (the
+                            join marker's), arg ``what``
+``opt.wait``                the host wait for one bucket's handle, arg
+                            ``bucket``
+``opt.update``              the wrapped optimizer's ``step``
 ==========================  =================================================
+
+``dispatch.*`` sit under their collective's span, which the handle
+carries to the dispatcher thread; ``opt.wait`` and ``host.sync`` under
+``opt.drain``; the rest of a step under ``opt.step``. The compiled plane
+and the Adasum delta optimizer emit ``opt.step`` and ``opt.update`` (and
+whatever their collectives emit under them).
 
 Each span records trace id, span id, parent span id, the owning rank,
 an **epoch**-microsecond start timestamp (``time.time()`` — the one
@@ -38,16 +70,31 @@ stream to a per-rank ``spans-rank<N>.jsonl`` file when
 ``hvd_tpu_timeline_dropped_total`` instead of growing a queue), and
 publish best-effort to the rendezvous ``trace`` KV scope for live
 fleets. ``python -m tools.trace`` merges either source into one
-cross-host chrome://tracing timeline for a request id.
+cross-host chrome://tracing timeline for a request id or a step's
+``step-<n>``.
+
+**On the profiler's clock.** While a ``torch.profiler`` session is
+recording, every span but the two that cannot be one (``opt.step``,
+which crosses threads, and ``dispatch.queue``, known only after the
+fact) is also opened as a ``record_function`` range named
+``hvd.<span>``, so it lands in the profiler's trace around the kernels
+its work launches. A training step opens its ranges whenever a profiler
+records, sampled or not (spans then reach the ring only if sampled). A
+session records the ranges of the threads it follows: the caller's and
+the autograd engine's, which carries the caller's profiler state; the
+collectives' dispatcher thread outlives the session, so its ranges land
+only in a session that follows every thread.
 
 Sampling is head-based and deterministic: ``HVD_TPU_TRACE_SAMPLE`` is
-the traced fraction, and the decision is a hash of the request id (not
-``hash()`` — PYTHONHASHSEED must not split the decision across hosts),
-so the router and every replica rank independently agree on whether a
-request is traced with zero coordination. The default 0 disables
-tracing entirely; the hot-path cost is then one module-global load and
-an is-None test per call site, the same discipline ``_schedule.record``
-and the timeline's no-op guard follow.
+the traced fraction, and the decision is a hash of the request id or
+step id (not ``hash()`` — PYTHONHASHSEED must not split the decision
+across hosts), so the router and every replica rank, or every training
+rank, independently agree on whether a trace is taken with zero
+coordination. The default 0 disables tracing entirely; the hot-path
+cost is then one module-global load and an is-None test per call site
+(the thread's context, or the optimizer's step trace), the same
+discipline ``_schedule.record`` and the timeline's no-op guard follow;
+a training step also reads torch's profiler flag once.
 """
 
 import collections
@@ -59,11 +106,14 @@ import time
 import uuid
 from typing import Optional
 
+from torch.autograd import profiler as _profiler
+
 from . import _locks
 
-__all__ = ["TraceContext", "Tracer", "Span", "tracer", "reset",
+__all__ = ["TraceContext", "Tracer", "Span", "StepTrace", "tracer", "reset",
            "request_span", "span", "span_for", "emit_span", "collective",
-           "current", "set_current", "sampled", "note_request",
+           "step_trace", "current", "set_current", "sampled",
+           "note_request",
            "last_request_id", "new_request_id", "TRACE_PARENT_HEADER",
            "ATTEMPT_HEADER", "KV_SCOPE"]
 
@@ -126,13 +176,16 @@ class TraceContext:
     """Identity of one request's trace as it crosses threads and
     hosts: the trace id plus the span the next child should nest
     under. ``encode``/``decode`` round-trip it through an HTTP header
-    or a KV value."""
+    or a KV value. ``record`` is False for an unsampled training step
+    traced only while a profiler records: spans under it open their
+    profiler ranges and reach no ring."""
 
-    __slots__ = ("trace_id", "span_id")
+    __slots__ = ("trace_id", "span_id", "record")
 
-    def __init__(self, trace_id: str, span_id: str):
+    def __init__(self, trace_id: str, span_id: str, record: bool = True):
         self.trace_id = trace_id
         self.span_id = span_id
+        self.record = record
 
     def encode(self) -> str:
         return f"{self.trace_id}:{self.span_id}"
@@ -355,15 +408,17 @@ _NULL_SPAN = _NullSpan()
 class Span:
     """Context manager recording one span. Entering installs the span
     as the thread's current context (so nested ``span()`` calls and
-    collective submissions bind under it); exiting restores the
-    previous context and emits the record."""
+    collective submissions bind under it) and, while a profiler records,
+    opens the range ``hvd.<name>``; exiting closes the range, restores
+    the previous context and emits the record. With ``tr`` None the span
+    only opens its range (an unsampled step under a profiler)."""
 
     __slots__ = ("_tr", "name", "trace_id", "span_id", "parent_id",
-                 "_args", "_ts", "_t0", "_prev")
+                 "_args", "_ts", "_t0", "_prev", "_range")
 
     sampled = True
 
-    def __init__(self, tr: Tracer, name: str, trace_id: str,
+    def __init__(self, tr: Optional[Tracer], name: str, trace_id: str,
                  parent_id: Optional[str], args: Optional[dict] = None):
         self._tr = tr
         self.name = name
@@ -381,10 +436,12 @@ class Span:
     def context(self) -> TraceContext:
         """A TraceContext naming this span as the parent — for header
         propagation (``TRACE_PARENT_HEADER``) or KV handoff."""
-        return TraceContext(self.trace_id, self.span_id)
+        return TraceContext(self.trace_id, self.span_id,
+                            self._tr is not None)
 
     def __enter__(self):
-        self._prev = set_current(TraceContext(self.trace_id, self.span_id))
+        self._range = _open_range(self.name)
+        self._prev = set_current(self.context())
         self._ts = time.time() * 1e6
         self._t0 = time.perf_counter()
         return self
@@ -392,11 +449,38 @@ class Span:
     def __exit__(self, etype, exc, tb):
         dur = (time.perf_counter() - self._t0) * 1e6
         set_current(self._prev)
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+        if self._tr is None:
+            return False
         if etype is not None:
             self.annotate(error=repr(exc))
         self._tr.emit(self.name, self.trace_id, self.span_id,
                       self.parent_id, self._ts, dur, self._args)
         return False
+
+
+def _open_range(name: str):
+    """The entered ``record_function`` range ``hvd.<name>`` while a
+    ``torch.profiler`` session records, else None."""
+    if not _profiler._is_profiler_enabled:
+        return None
+    rf = _profiler.record_function("hvd." + name)
+    rf.__enter__()
+    return rf
+
+
+def _child(ctx: TraceContext, name: str, args: Optional[dict]):
+    """A span under ``ctx``: recorded when ``ctx`` is and the tracer is
+    on, a range alone under a profiler, else the no-op span."""
+    if ctx.record:
+        tr = _TRACER if _RESOLVED else tracer()
+        if tr is not None:
+            return Span(tr, name, ctx.trace_id, ctx.span_id, args)
+        return _NULL_SPAN
+    if _profiler._is_profiler_enabled:
+        return Span(None, name, ctx.trace_id, ctx.span_id, args)
+    return _NULL_SPAN
 
 
 def request_span(name: str, request_id: Optional[str],
@@ -422,25 +506,22 @@ def request_span(name: str, request_id: Optional[str],
 
 def span(name: str, args: Optional[dict] = None):
     """Child span under the calling thread's current context; a no-op
-    when the thread carries no sampled request."""
-    tr = _TRACER if _RESOLVED else tracer()
-    if tr is None:
-        return _NULL_SPAN
+    when the thread carries no sampled request or traced step."""
     ctx = getattr(_tls, "ctx", None)
     if ctx is None:
         return _NULL_SPAN
-    return Span(tr, name, ctx.trace_id, ctx.span_id, args)
+    return _child(ctx, name, args)
 
 
 def span_for(ctx: Optional[TraceContext], name: str,
              args: Optional[dict] = None):
     """Child span bound to an explicit context — for worker threads
-    (batcher dispatch, generation scheduler) that carry the request's
-    context in a data structure rather than thread-local state."""
-    tr = _TRACER if _RESOLVED else tracer()
-    if tr is None or ctx is None:
+    (batcher dispatch, generation scheduler, the collectives'
+    dispatcher) that carry the request's context in a data structure
+    rather than thread-local state."""
+    if ctx is None:
         return _NULL_SPAN
-    return Span(tr, name, ctx.trace_id, ctx.span_id, args)
+    return _child(ctx, name, args)
 
 
 def emit_span(ctx: Optional[TraceContext], name: str,
@@ -451,8 +532,10 @@ def emit_span(ctx: Optional[TraceContext], name: str,
     that already ended when tracing code ran — the batcher's queue wait
     is only known at dispatch. The interval is mapped onto the epoch
     clock through the current monotonic/epoch pair."""
+    if ctx is None or not ctx.record:
+        return
     tr = _TRACER if _RESOLVED else tracer()
-    if tr is None or ctx is None:
+    if tr is None:
         return
     now_mono = time.monotonic()
     end_mono = now_mono if end_monotonic is None else end_monotonic
@@ -462,18 +545,69 @@ def emit_span(ctx: Optional[TraceContext], name: str,
             ts, dur, args)
 
 
-def collective(entry: tuple) -> None:
-    """``collectives._record_round`` hook: an instant span naming the
-    submitted collective's verb and tensor name, bound to whatever
-    sampled request the submitting thread is working for. The first
-    line is the zero-overhead guard — with ``HVD_TPU_TRACE_SAMPLE=0``
-    (the default) this costs one module-global load and an is-None
-    test per collective submission."""
-    tr = _TRACER if _RESOLVED else tracer()
-    if tr is None:
-        return
+def collective(entry: tuple) -> Optional[Span]:
+    """``collectives._record_round`` hook: the entered span of the
+    collective's submission, named by its verb and tensor name, under
+    whatever sampled request or traced step the submitting thread works
+    for, or None. The submission closes it (``collectives._submit``)
+    and hands its context to the dispatcher. The first lines are the
+    zero-overhead guard — off, this costs one module-global load and an
+    is-None test per collective submission."""
     ctx = getattr(_tls, "ctx", None)
     if ctx is None:
-        return
-    tr.emit(f"collective:{entry[0]}:{entry[1]}", ctx.trace_id,
-            uuid.uuid4().hex[:16], ctx.span_id, time.time() * 1e6, 0.0)
+        return None
+    sp = _child(ctx, f"collective:{entry[0]}:{entry[1]}", None)
+    if sp is _NULL_SPAN:
+        return None
+    return sp.__enter__()
+
+
+def dispatch_span(ctx: TraceContext, queued: float) -> Span:
+    """On the dispatcher thread, as it takes a traced collective: emit
+    ``dispatch.queue`` (from ``queued``, ``time.monotonic()`` at submit,
+    to now) and return the ``dispatch.run`` span to enter, both under
+    the collective's span ``ctx``."""
+    emit_span(ctx, "dispatch.queue", queued)
+    return span_for(ctx, "dispatch.run")
+
+
+class StepTrace:
+    """One training step's trace ``step-<n>``: its root span ``opt.step``
+    from ``t0`` (``time.perf_counter()``, the optimizer's step-start
+    timestamp) to :meth:`close`, which may run on another thread than
+    the one that began it, so the root opens no profiler range.
+    ``ctx`` is the context its children bind to; ``args`` the root's,
+    which the optimizer fills in."""
+
+    __slots__ = ("_tr", "ctx", "args", "_ts", "_t0")
+
+    def __init__(self, tr: Optional[Tracer], n: int, t0: float):
+        self._tr = tr
+        self.ctx = TraceContext(f"step-{n}", uuid.uuid4().hex[:16],
+                                tr is not None)
+        self.args: dict = {}
+        self._t0 = t0
+        self._ts = time.time() * 1e6 - (time.perf_counter() - t0) * 1e6
+
+    def child(self, name: str, args: Optional[dict] = None):
+        """A span directly under the root."""
+        return _child(self.ctx, name, args)
+
+    def close(self) -> None:
+        if self._tr is not None:
+            dur = (time.perf_counter() - self._t0) * 1e6
+            self._tr.emit("opt.step", self.ctx.trace_id, self.ctx.span_id,
+                          None, self._ts, dur, self.args)
+
+
+def step_trace(n: int, t0: float) -> Optional[StepTrace]:
+    """The trace of training step ``n`` begun at ``t0``: recorded when
+    the tracer is on and samples ``step-<n>``, ranges alone while a
+    profiler records, else None (two global loads and two tests, once a
+    step)."""
+    tr = _TRACER if _RESOLVED else tracer()
+    if tr is not None and not sampled(f"step-{n}", tr.rate):
+        tr = None
+    if tr is None and not _profiler._is_profiler_enabled:
+        return None
+    return StepTrace(tr, n, t0)
