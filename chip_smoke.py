@@ -30,8 +30,9 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
    so each step's kernel call is the training shape (BH 96, S 2048, D 64)
    with nonzero device offsets. Forward and backward are held to one
    full-sequence flash call at S 8192 and to the plain fp32 attention at
-   B 1; the launches are counted (16 forward, 16 recomputed in backward)
-   and the ring is timed against the single call.
+   B 1; the launches are counted (16 forward, 16 recomputed in backward,
+   16 of the backward kernel) and the ring is timed against the single
+   call.
 5a. compiled_ring: the same ring on the same inputs with each position's
    local compute compiled by torch.compile (inductor, fullgraph=True, one
    graph a position, dynamic=False): every step is the custom op
@@ -39,7 +40,8 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
    each step checkpointed inside the graph, forward and backward. The
    output and dq, dk, dv are held to the eager ring's (and the output to
    the full call) within the ring phase's tolerances, the launches to the
-   eager ring's (16 forward, 16 recomputed). Prints each position's
+   eager ring's (16 forward, 16 recomputed, 16 of the backward kernel
+   through hvd_tpu::flash_bwd). Prints each position's
    compile seconds (its first forward and backward) and the compiled and
    eager forward + backward ms.
 6. tensor_parallel: the full-width default model's decoder layer 0 split
@@ -61,8 +63,9 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
    parameters, bf16 activations) trained for a few steps at batch
    8 x 2048 through hvd.init() (NCCL), broadcast_parameters and
    DistributedOptimizer(AdamW), after a small run that holds the flash
-   path's losses against the plain attention's; the kernel launch counts
-   are reset just before the full-width steps and read just after. Then
+   path's losses against the plain attention's; the forward and backward
+   kernels' launch counts are reset just before the full-width steps and
+   read just after (one each a layer a step). Then
    the same full-width steps with the model's default attention, whose
    losses the flash path's must track.
 7a. compiled: the compiled step, make_transformer_train_step(cfg,
@@ -78,12 +81,19 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
    in the reduction), no eager collective ran (COUNTS and
    hvd_tpu_collective_ops_total flat) while
    hvd_tpu_injit_lowerings_total{op="grouped_allreduce"} moved by one,
-   the kernel launched 12 times a step, and the losses track the train
+   the forward and backward kernels launched 12 times a step each (the
+   backward through hvd_tpu::flash_bwd), and the losses track the train
    phase's (step 1 within TOL_COMPILED_FIRST relative, later steps
    TOL_COMPILED_LATER). Prints the compile step's seconds, the steady ms
    a step and tokens/s beside the train phase's, peak memory, the
    nvidia-smi line and, in a second line, one more step timed by region.
    Inductor's and Triton's caches go under build/.
+7b. gpt2m_launches: the benchmark's GPT-2 medium widths
+   (perfbench/configs/gpt2-medium.json: 24 layers, width 1024, 16 heads)
+   at batch 8 x 1024, bf16, through make_transformer_train_step: one warm
+   step, then GPT2M_STEPS steps with the launch counts reset just before
+   and read just after; the backward kernel must launch once a layer a
+   step (24) and flash_bwd_plain never run.
 8. checkpoint: the trained bundle's state (444.5 MB of parameters, 889 MB
    of AdamW state) saved through the port's CheckpointManager under
    build/, once synchronously and once asynchronously; 2 more steps,
@@ -221,8 +231,9 @@ Each phase prints one JSON line; any failure raises and exits non-zero.
    the timeline's torch.profiler capture. The losses equal the train
    phase's first 3 bit for bit; the timeline parses and holds
    GROUPED_ALLREDUCE and NCCL_ALLREDUCE on every gradient bucket's lane
-   for every step; its spliced device lanes hold the flash kernel 12
-   times, on the host clock; no record dropped; a scrape of /metrics
+   for every step; its spliced device lanes hold the flash forward
+   kernel 12 times, on the host clock, and the backward's three kernels
+   12 times each; no record dropped; a scrape of /metrics
    counts the optimizer's grouped allreduce once per bucket per step,
    with bytes equal to the gradients'; the schedule ledger is not empty.
    Prints the steady step ms beside the train phase's, the events
@@ -395,9 +406,10 @@ RING_SEQ = 8192
 #     2 ulp(|ref|) + 2 * 2^-8 (P|V|).
 RING_P_TERMS_VS_FULL = 3
 RING_P_TERMS_VS_EXACT = 2
-# gradients (bf16 dq, dk, dv; the backward is the fp32 plain version on
-# both sides, fed by bf16 outputs that differ as above): relative L2 error
-# within 2^-7, a few bf16 roundings (2^-8 each) of every element
+# gradients (bf16 dq, dk, dv; the backward kernel on both sides, which
+# rounds P and dS to bf16, fed by bf16 outputs that differ as above):
+# relative L2 error within 2^-7, a few bf16 roundings (2^-8 each) of every
+# element
 TOL_RING_GRAD_REL = 2.0 ** -7
 
 # tensor_parallel phase: tp blocks of decoder layer 0. The split layer's
@@ -464,7 +476,8 @@ def ptxas_report(logs) -> dict:
     for line in "\n".join(logs).splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
-            t = re.search(r"(flash_fwd_[a-z]+)I(\w+?)Li(\d+)E", m.group(1))
+            t = re.search(r"(flash_(?:fwd|bwd)_[a-z]+)I(\w+?)Li(\d+)E",
+                          m.group(1))
             entry = (f"{t.group(1)}<{types.get(t.group(2), t.group(2))}, "
                      f"{t.group(3)}>" if t else m.group(1))
         elif entry and ("registers" in line or "spill" in line):
@@ -609,11 +622,16 @@ def flash_bound(q, causal):
     bh, s, d = q.shape
     nbytes = (4 * q.numel()) * q.element_size() + bh * s * 4
     flops = 4 * d * bh * visible_pairs(s, s, causal, 0, 0)
+    return nbytes, flops, roofline(nbytes, flops)
+
+
+def roofline(nbytes, flops):
+    """{"bound_ms", "bound_by"}: the least time of a call that moves
+    ``nbytes`` and computes ``flops`` at the card's peaks."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
-    return nbytes, flops, {
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
 def kernel_timing(torch, fa, main):
@@ -628,12 +646,6 @@ def kernel_timing(torch, fa, main):
     q4, k4, v4 = (t.view(BATCH, bh // BATCH, s, d) for t in (q, k, v))
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q4, k4, v4, is_causal=causal), 20)
-    # the backward that runs on the main path (plain PyTorch, fp32)
-    out, lse = fa.flash_fwd_cuda(q, k, v, 0, 0, causal)
-    g = torch.randn_like(q)
-    g_lse = torch.zeros_like(lse)
-    bwd_plain_ms = cuda_ms(lambda: fa.flash_bwd_plain(
-        q, k, v, out, lse, g, g_lse, 0, 0, causal), 3)
     nbytes, flops, bound = flash_bound(q, causal)
     row = {"name": "flash_fwd", "route": "cuda",
            "source": "horovod_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -644,9 +656,73 @@ def kernel_timing(torch, fa, main):
           "shape": [bh, s, s, d], "dtype": str(q.dtype), "bytes": nbytes,
           "flops": flops, "tflops": flops / (ms * 1e-3) / 1e12,
           "bound_share": row["bound_ms"] / ms,
-          "library_tflops": flops / (library_ms * 1e-3) / 1e12,
-          "bwd_plain_ms": bwd_plain_ms, **row})
+          "library_tflops": flops / (library_ms * 1e-3) / 1e12, **row})
     return row
+
+
+# the backward kernel's shapes (name, BH, S; D 64, bf16, causal): GPT-2
+# medium's layer (8 x 16 heads, S 1024) and the training shape of the
+# default transformer (8 x 12 heads, S 2048)
+BWD_SHAPES = (("gpt2_medium", 128, 1024), ("training", 96, 2048))
+# the backward kernel's gradients against the plain version's, relative
+# L2 per tensor: the kernel rounds P and dS to bf16 (2^-8 at most, about
+# 2^-9.5 on average) before the products that accumulate, and each side
+# rounds its output once; 2^-7 leaves three times the 0.0025-0.0027 read
+# on the card, and a missing tile or row term moves a gradient by percents
+TOL_BWD_REL = 2.0 ** -7
+
+
+def flash_bwd_bound(bh, s, d, causal):
+    """(bytes, operations, {"bound_ms", "bound_by"}) of one backward call
+    on (BH, S, D) bf16 inputs: q, k, v, out and dO read and dq, dk, dv
+    written once in bf16, lse and g_lse read once in fp32; the five
+    products of a backward (S, dP, dV, dK, dQ) over the visible pairs at
+    the bf16 peak (the kernel computes S and dP twice: seven)."""
+    nbytes = 8 * bh * s * d * 2 + 2 * bh * s * 4
+    flops = 5 * 2 * d * bh * visible_pairs(s, s, causal, 0, 0)
+    return nbytes, flops, roofline(nbytes, flops)
+
+
+def bwd_kernel_timing(torch, fa):
+    """The backward kernel at BWD_SHAPES: held to the plain version
+    (TOL_BWD_REL), timed against its bound, the plain version and SDPA's
+    backward (the yardstick only; the port never calls it)."""
+    import torch.nn.functional as F
+    rows = {}
+    for name, bh, s in BWD_SHAPES:
+        d = 64
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        q, k, v, g = (torch.randn(bh, s, d, generator=gen, device="cuda")
+                      .to(torch.bfloat16) for _ in range(4))
+        out, lse = fa.flash_fwd_cuda(q, k, v, 0, 0, True)
+        args = (q, k, v, out, lse, g, torch.zeros_like(lse), 0, 0, True)
+        got = fa.flash_bwd_cuda(*args)
+        want = fa.flash_bwd_plain(*args)
+        rel = [((a.float() - b.float()).norm() / b.float().norm()).item()
+               for a, b in zip(got, want)]
+        ms = cuda_ms(lambda: fa.flash_bwd_cuda(*args), 20)
+        plain_ms = cuda_ms(lambda: fa.flash_bwd_plain(*args), 3)
+        q4, k4, v4 = (t.view(BATCH, bh // BATCH, s, d).detach()
+                      .requires_grad_() for t in (q, k, v))
+        o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+        g4 = g.view(BATCH, bh // BATCH, s, d)
+        library_ms = cuda_ms(lambda: torch.autograd.grad(
+            o4, (q4, k4, v4), g4, retain_graph=True), 20)
+        nbytes, flops, bound = flash_bwd_bound(bh, s, d, True)
+        ok = max(rel) <= TOL_BWD_REL
+        row = {"ms": ms, "plain_ms": plain_ms, **bound,
+               "library_ms": library_ms, "rel_l2_dq_dk_dv": rel}
+        emit({"phase": "kernel_timing", "kernel": "flash_bwd",
+              "shape": [bh, s, s, d], "dtype": str(q.dtype), "bytes": nbytes,
+              "flops": flops, "tflops": flops / (ms * 1e-3) / 1e12,
+              "bound_share": bound["bound_ms"] / ms,
+              "library_tflops": flops / (library_ms * 1e-3) / 1e12,
+              "tol_rel": TOL_BWD_REL, "ok": ok, **row})
+        if not ok:
+            raise AssertionError(f"flash_bwd disagrees with its plain "
+                                 f"version at {name}: {rel}")
+        rows[name] = row
+    return rows
 
 
 def gradient_check(torch, fa):
@@ -714,12 +790,14 @@ def ring_phase(torch, fa):
     # the path: counts set to 0 just before, read just after
     torch.cuda.synchronize()
     fa.LAUNCHES["flash_fwd"] = 0
+    fa.LAUNCHES["flash_bwd"] = 0
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     out = ring(*leaves)
     fwd_launches = fa.LAUNCHES["flash_fwd"]
     out.backward(g)
     torch.cuda.synchronize()
     launches = fa.LAUNCHES["flash_fwd"]
+    bwd_launches = fa.LAUNCHES["flash_bwd"]
     ring_out, ring_grads = out.detach(), [t.grad for t in leaves]
     del out, leaves
 
@@ -781,6 +859,7 @@ def ring_phase(torch, fa):
 
     want = n * n
     ok = (fwd_launches == want and launches - fwd_launches == want
+          and bwd_launches == want
           and ratio_full.item() <= 1 and ratio_exact.item() <= 1
           and max(grad_rel_full + grad_rel_exact) <= TOL_RING_GRAD_REL
           and bool(torch.isfinite(ring_out.float()).all()))
@@ -790,6 +869,7 @@ def ring_phase(torch, fa):
         "kernel_call_shape": [BATCH * heads, sl, sl, d],
         "launches_forward": fwd_launches,
         "launches_backward_recompute": launches - fwd_launches,
+        "launches_backward_kernel": bwd_launches,
         "launches_expected_each": want,
         "max_over_bound_vs_full_call": ratio_full.item(),
         "max_over_bound_vs_exact_b1": ratio_exact.item(),
@@ -807,11 +887,14 @@ def ring_phase(torch, fa):
                              "are not the expected count")
     eager = {"out": ring_out, "grads": ring_grads, "full_out": full_out,
              "pv": pv, "launches_forward": fwd_launches,
-             "launches": launches, "forward_backward_ms": ring_fb_ms}
-    compiled_launches = compiled_ring_phase(torch, fa, ra, q, k, v, g, eager)
+             "launches": launches, "launches_backward_kernel": bwd_launches,
+             "forward_backward_ms": ring_fb_ms}
+    compiled_launches, compiled_bwd = compiled_ring_phase(
+        torch, fa, ra, q, k, v, g, eager)
     del q, k, v, g, ring_out, ring_grads, full_out, pv, eager
     torch.cuda.empty_cache()
-    return launches, compiled_launches
+    return launches, compiled_launches, {"ring": bwd_launches,
+                                         "compiled_ring": compiled_bwd}
 
 
 def bf16_ulp(torch, x):
@@ -820,10 +903,11 @@ def bf16_ulp(torch, x):
     return torch.ldexp(torch.ones_like(x), e - 8)
 
 
-def compiled_ring_phase(torch, fa, ra, q, k, v, g, eager) -> int:
+def compiled_ring_phase(torch, fa, ra, q, k, v, g, eager):
     """Phase 5a of the module docstring: the ring phase's positions, each
     compiled, on its inputs, held to its eager ring (``eager``). Returns
-    the flash launches of the compiled ring's forward and backward."""
+    the flash launches of the compiled ring's forward and backward, and
+    its backward kernel's launches."""
     n, S = RING_SP, RING_SEQ
     sl = S // n
 
@@ -848,6 +932,7 @@ def compiled_ring_phase(torch, fa, ra, q, k, v, g, eager) -> int:
           for t in pair]
     torch.cuda.synchronize()
     fa.LAUNCHES["flash_fwd"] = 0
+    fa.LAUNCHES["flash_bwd"] = 0
     compile_s, fwd_launches, outs = [], 0, []
     for j, (qb, gb) in enumerate(zip(split(leaves[0]), split(g))):
         t0 = time.perf_counter()
@@ -859,6 +944,7 @@ def compiled_ring_phase(torch, fa, ra, q, k, v, g, eager) -> int:
         compile_s.append(time.perf_counter() - t0)
         outs.append(out.detach())
     launches = fa.LAUNCHES["flash_fwd"]
+    bwd_launches = fa.LAUNCHES["flash_bwd"]
     got = torch.cat(outs, dim=1)
     grads = [t.grad for t in leaves]
     del outs, leaves, kv
@@ -884,6 +970,7 @@ def compiled_ring_phase(torch, fa, ra, q, k, v, g, eager) -> int:
     del got, grads
     ok = (fwd_launches == eager["launches_forward"]
           and launches == eager["launches"]
+          and bwd_launches == eager["launches_backward_kernel"]
           and ratio_eager <= 1 and ratio_full <= 1
           and max(grad_rel) <= TOL_RING_GRAD_REL)
     emit({"phase": "compiled_ring", "backend": "inductor", "sp": n,
@@ -894,6 +981,9 @@ def compiled_ring_phase(torch, fa, ra, q, k, v, g, eager) -> int:
           "eager_launches_forward": eager["launches_forward"],
           "eager_launches_backward_recompute":
               eager["launches"] - eager["launches_forward"],
+          "launches_backward_kernel": bwd_launches,
+          "eager_launches_backward_kernel":
+              eager["launches_backward_kernel"],
           "max_over_bound_vs_eager_ring": ratio_eager,
           "max_over_bound_vs_full_call": ratio_full,
           "output_equal_to_eager_ring": bitwise,
@@ -906,7 +996,7 @@ def compiled_ring_phase(torch, fa, ra, q, k, v, g, eager) -> int:
     if not ok:
         raise AssertionError("the compiled ring disagrees with the eager "
                              "ring, or its launches differ")
-    return launches
+    return launches, bwd_launches
 
 
 def flash_timing(torch, fa, bh, s, d, causal=True, plain_iters=3,
@@ -1112,6 +1202,7 @@ def train_main_path(torch, hvd, fa, collectives, cfg, tokens, targets):
     torch.cuda.reset_peak_memory_stats()
 
     fa.LAUNCHES["flash_fwd"] = 0
+    fa.LAUNCHES["flash_bwd"] = 0
     collectives.COUNTS["allreduce"] = 0
     losses, seconds = [], []
     for _ in range(TRAIN_STEPS):
@@ -1121,6 +1212,7 @@ def train_main_path(torch, hvd, fa, collectives, cfg, tokens, targets):
         seconds.append(time.perf_counter() - t0)
         losses.append(loss)
     launches = fa.LAUNCHES["flash_fwd"]
+    bwd_launches = fa.LAUNCHES["flash_bwd"]
     allreduces = collectives.COUNTS["allreduce"]
 
     steady = seconds[1:]
@@ -1137,7 +1229,8 @@ def train_main_path(torch, hvd, fa, collectives, cfg, tokens, targets):
         "model_flops_per_step": flops,
         "mfu_vs_bf16_peak": flops / step_s / PEAK_BF16_FLOPS,
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "flash_launches": launches, "allreduce_launches": allreduces,
+        "flash_launches": launches, "flash_bwd_launches": bwd_launches,
+        "allreduce_launches": allreduces,
         "world_size": hvd.size(), "backend": hvd.basics.world().backend}
     emit(result)
     step_breakdown(torch, bundle, tokens, targets)
@@ -1145,12 +1238,76 @@ def train_main_path(torch, hvd, fa, collectives, cfg, tokens, targets):
         raise AssertionError("non-finite loss")
     if abs(losses[0] - math.log(cfg.vocab_size)) > 1.0:
         raise AssertionError(f"first loss {losses[0]} is not near ln(vocab)")
-    if launches != cfg.num_layers * TRAIN_STEPS:
-        raise AssertionError(f"{launches} flash launches, expected "
-                             f"{cfg.num_layers * TRAIN_STEPS}")
+    if launches != cfg.num_layers * TRAIN_STEPS \
+            or bwd_launches != launches:
+        raise AssertionError(f"{launches} flash and {bwd_launches} backward "
+                             f"launches, expected "
+                             f"{cfg.num_layers * TRAIN_STEPS} each")
     if allreduces <= 0:
         raise AssertionError("no allreduce was launched")
-    return launches, losses, bundle, result["ms_per_step_steady"]
+    return (launches, bwd_launches, losses, bundle,
+            result["ms_per_step_steady"])
+
+
+GPT2M_STEPS = 2
+
+
+def gpt2m_launch_phase(torch, fa):
+    """Phase 7b of the module docstring: the backward kernel's launches
+    a step at the benchmark's GPT-2 medium widths."""
+    from horovod_tpu_torch.models import TransformerConfig
+    from horovod_tpu_torch.parallel import make_transformer_train_step
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "perfbench", "configs", "gpt2-medium.json")
+    with open(path) as f:
+        c = json.load(f)
+    cfg = TransformerConfig(
+        vocab_size=c["vocab_size"], num_layers=c["n_layer"],
+        d_model=c["n_embd"], num_heads=c["n_head"],
+        head_dim=c["n_embd"] // c["n_head"], mlp_ratio=4,
+        max_seq_len=c["n_positions"], dtype=getattr(torch, c["dtype"]))
+    bundle = make_transformer_train_step(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0))
+    data = torch.randint(0, cfg.vocab_size, (BATCH, cfg.max_seq_len + 1),
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(2), device="cuda")
+    tokens, targets = data[:, :-1], data[:, 1:]
+    plain = fa.flash_bwd_plain
+    plain_calls = []
+
+    def counted_plain(*args, **kwargs):
+        plain_calls.append(1)
+        return plain(*args, **kwargs)
+    fa.flash_bwd_plain = counted_plain
+    try:
+        losses = [bundle.step(tokens, targets).item()]
+        torch.cuda.synchronize()
+        fa.LAUNCHES["flash_fwd"] = 0
+        fa.LAUNCHES["flash_bwd"] = 0
+        losses += [bundle.step(tokens, targets).item()
+                   for _ in range(GPT2M_STEPS)]
+        torch.cuda.synchronize()
+        launches = dict(fa.LAUNCHES)
+    finally:
+        fa.flash_bwd_plain = plain
+        bundle.optimizer.remove_hooks()
+    del bundle
+    torch.cuda.empty_cache()
+    want = cfg.num_layers * GPT2M_STEPS
+    ok = (launches["flash_fwd"] == want and launches["flash_bwd"] == want
+          and not plain_calls and all(math.isfinite(x) for x in losses))
+    emit({"phase": "gpt2m_launches", "layers": cfg.num_layers,
+          "batch": BATCH, "seq": cfg.max_seq_len, "steps": GPT2M_STEPS,
+          "flash_launches": launches["flash_fwd"],
+          "flash_bwd_launches": launches["flash_bwd"],
+          "flash_bwd_launches_a_step": launches["flash_bwd"] / GPT2M_STEPS,
+          "flash_bwd_plain_calls": len(plain_calls), "losses": losses,
+          "ok": ok})
+    if not ok:
+        raise AssertionError(f"GPT-2 medium step: {launches} launches and "
+                             f"{len(plain_calls)} plain backward calls, "
+                             f"expected {want} each and none")
+    return launches["flash_bwd"] // GPT2M_STEPS
 
 
 def train_default_reference(torch, cfg, tokens, targets, flash_losses):
@@ -1195,7 +1352,7 @@ def compiled_phase(torch, hvd, fa, collectives, cfg, tokens, targets,
     """Phase 7a of the module docstring: the compiled step
     (make_transformer_train_step(compiled=True), inductor) at full width on
     the train phase's seeds, weights and data. Returns the flash launches
-    of its TRAIN_STEPS steps."""
+    of its TRAIN_STEPS steps, and its backward kernel's."""
     from horovod_tpu_torch import metrics
     from horovod_tpu_torch.fusion import packed_plan
     from horovod_tpu_torch.config import INJIT_PACKED_THRESHOLD
@@ -1219,13 +1376,16 @@ def compiled_phase(torch, hvd, fa, collectives, cfg, tokens, targets,
     before = metrics.snapshot()
     collectives.COUNTS["allreduce"] = 0
     fa.LAUNCHES["flash_fwd"] = 0
+    fa.LAUNCHES["flash_bwd"] = 0
     t0 = time.perf_counter()
     losses = [bundle.step(tokens, targets).item()]
     torch.cuda.synchronize()
     compile_s = time.perf_counter() - t0
     compile_launches = fa.LAUNCHES["flash_fwd"]
+    compile_bwd_launches = fa.LAUNCHES["flash_bwd"]
 
     fa.LAUNCHES["flash_fwd"] = 0
+    fa.LAUNCHES["flash_bwd"] = 0
     seconds = []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -1233,6 +1393,7 @@ def compiled_phase(torch, hvd, fa, collectives, cfg, tokens, targets,
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
     launches = fa.LAUNCHES["flash_fwd"]
+    bwd_launches = fa.LAUNCHES["flash_bwd"]
     after = metrics.snapshot()
     peak = torch.cuda.max_memory_allocated() / 2**30
     regions = [(g["region"], g["flash_ops"], g["all_reduces"])
@@ -1249,6 +1410,8 @@ def compiled_phase(torch, hvd, fa, collectives, cfg, tokens, targets,
             after.get(grouped, 0) - before.get(grouped, 0) == 1,
         "flash_12_a_step": launches == cfg.num_layers * TRAIN_STEPS
             and compile_launches == cfg.num_layers,
+        "flash_bwd_12_a_step": bwd_launches == cfg.num_layers * TRAIN_STEPS
+            and compile_bwd_launches == cfg.num_layers,
         "losses_track_train": all(r <= t for r, t in zip(rel, tols)),
         "finite": all(math.isfinite(x) for x in losses),
     }
@@ -1263,6 +1426,8 @@ def compiled_phase(torch, hvd, fa, collectives, cfg, tokens, targets,
         "train_tokens_per_s": BATCH * cfg.max_seq_len / (train_ms / 1e3),
         "peak_memory_gib": peak, "flash_launches": launches,
         "flash_launches_compile_step": compile_launches,
+        "flash_bwd_launches": bwd_launches,
+        "flash_bwd_launches_compile_step": compile_bwd_launches,
         "allreduce_launches": collectives.COUNTS["allreduce"],
         "nvidia_smi": nvidia_smi_line(), "checks": checks,
         "ok": all(checks.values())}
@@ -1272,7 +1437,7 @@ def compiled_phase(torch, hvd, fa, collectives, cfg, tokens, targets,
         raise AssertionError(f"compiled phase failed: {checks}")
     del bundle
     torch.cuda.empty_cache()
-    return launches
+    return launches, bwd_launches
 
 
 def compiled_breakdown(torch, bundle, tokens, targets):
@@ -2974,8 +3139,10 @@ def telemetry_phase(torch, fa, cfg, train_losses, train_ms):
         lane = lanes.get(e.get("tid"), "")
         if e.get("ph") == "B" and lane.startswith("grad.bucket."):
             per_bucket.setdefault(lane, []).append(e["name"])
-    flash = [e for e in device if e.get("ph") == "X"
-             and e.get("cat") == "kernel" and "flash" in e.get("name", "")]
+    kernels = [e for e in device
+               if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    flash = [e for e in kernels if "flash_fwd" in e.get("name", "")]
+    flash_bwd = [e for e in kernels if "flash_bwd" in e.get("name", "")]
     step3 = [e["ts"] for e in host if e.get("ph") == "B"
              and lanes.get(e.get("tid"), "").startswith("grad.bucket.")]
     marker = [e for e in device if e.get("name") == ttl.SYNC_MARKER]
@@ -2995,6 +3162,7 @@ def telemetry_phase(torch, fa, cfg, train_losses, train_ms):
             and names.count("NCCL_ALLREDUCE") == 3
             for names in per_bucket.values()),
         "flash_in_device_lanes": len(flash) == cfg.num_layers
+        and len(flash_bwd) == 3 * cfg.num_layers
         and traced_launches == cfg.num_layers,
         "device_lanes_on_host_clock": aligned,
         "dropped_zero": dropped == 0,
@@ -3010,7 +3178,9 @@ def telemetry_phase(torch, fa, cfg, train_losses, train_ms):
         "buckets": n_buckets, "gradient_bytes": grad_bytes,
         "events_written": written, "events_spliced": len(device),
         "flash_kernel_events": len(flash),
-        "flash_kernel_names": sorted({e["name"] for e in flash}),
+        "flash_bwd_kernel_events": len(flash_bwd),
+        "flash_kernel_names": sorted({e["name"]
+                                      for e in flash + flash_bwd}),
         "timeline_bytes": os.path.getsize(tl_path),
         "scrape_ms": scrape_ms, "scrape_bytes": len(text),
         "scraped_ops": ops, "scraped_bytes": nbytes, "ledger_n": ledger_n,
@@ -4538,8 +4708,9 @@ def main() -> int:
 
     main_case = kernel_cases(torch, fa)
     row = kernel_timing(torch, fa, main_case)
+    bwd_rows = bwd_kernel_timing(torch, fa)
     gradient_check(torch, fa)
-    ring_launches, compiled_ring_launches = ring_phase(torch, fa)
+    ring_launches, compiled_ring_launches, ring_bwd = ring_phase(torch, fa)
     tp_launches, compiled_tp_launches, tp_row = tensor_parallel_phase(
         torch, fa)
 
@@ -4550,11 +4721,12 @@ def main() -> int:
                          generator=torch.Generator(device="cuda")
                          .manual_seed(1), device="cuda")
     tokens, targets = data[:, :-1], data[:, 1:]
-    row["launches"], losses, bundle, train_ms = train_main_path(
+    row["launches"], train_bwd, losses, bundle, train_ms = train_main_path(
         torch, hvd, fa, collectives, cfg, tokens, targets)
     train_default_reference(torch, cfg, tokens, targets, losses)
-    compiled_launches = compiled_phase(torch, hvd, fa, collectives, cfg,
-                                       tokens, targets, losses, train_ms)
+    compiled_launches, compiled_bwd = compiled_phase(
+        torch, hvd, fa, collectives, cfg, tokens, targets, losses, train_ms)
+    gpt2m_bwd_a_step = gpt2m_launch_phase(torch, fa)
     checkpoint_phase(torch, bundle, tokens, targets)
     cnn_phase(torch)
     serving_launches, serving_rows = serving_phase(torch, fa, cfg, bundle,
@@ -4604,7 +4776,16 @@ def main() -> int:
                            str(bh): {key: r[key] for key in (
                                "ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms", "max_abs_err")}
-                           for bh, r in serving_rows.items()}}]})
+                           for bh, r in serving_rows.items()}},
+                      {"name": "flash_bwd", "route": "cuda",
+                       "source": "horovod_tpu_torch/ops/csrc/flash_bwd.cu",
+                       "replaces": None,
+                       "launches_by_path": {"train": train_bwd,
+                                            "compiled": compiled_bwd,
+                                            **ring_bwd,
+                                            "gpt2m_a_step":
+                                                gpt2m_bwd_a_step},
+                       "by_shape": bwd_rows}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

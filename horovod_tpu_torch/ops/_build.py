@@ -25,7 +25,7 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 BUILD_DIR = os.path.join(_ROOT, "build", "torch_kernels")
 
 #: kernel name -> source file in csrc/
-SOURCES = {"flash_fwd": "flash_fwd.cu"}
+SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,5 +1,5 @@
-"""Flash (blockwise online-softmax) attention with a hand-written Hopper
-kernel.
+"""Flash (blockwise online-softmax) attention with hand-written Hopper
+kernels.
 
 Counterpart of ``horovod_tpu/ops/flash_attention.py``. The forward on a
 CUDA tensor is the CUDA C++ in ``csrc/flash_fwd.cu`` (it replaces the
@@ -7,14 +7,22 @@ Pallas TPU kernel ``_fwd_kernel``): TMA and wgmma tiles with
 warp-specialised warpgroups for bf16 and fp16, scalar fp32 FMAs for fp32;
 its note says what it computes and what bounds it. On a CPU tensor the
 forward is :func:`flash_fwd_plain`, the same recurrence in plain PyTorch.
-The backward is :func:`flash_bwd_plain` on either device: the JAX
-package's backward (``_flash_vjp_bwd``) is plain XLA, not a kernel, and
-this is its counterpart — a blockwise recompute over K in fp32 that also
-carries the lse cotangent, ``ds = p * (dp - delta + g_lse) * scale``.
+
+The backward (:func:`_flash_bwd`) is, on a bf16 or fp16 CUDA tensor, the
+CUDA C++ in ``csrc/flash_bwd.cu`` (:func:`flash_bwd_cuda`): the same TMA
+and wgmma design in two passes, dK/dV over key tiles and a deterministic
+dQ over query tiles, with P and dS rounded to the input type before the
+products that accumulate. It replaces no TPU kernel (the JAX package's
+backward, ``_flash_vjp_bwd``, is plain XLA); its note says why it was
+added and what bounds it. On a CPU tensor, and on an fp32 CUDA tensor
+(no training path runs one; the exact fp32 arithmetic is that path's),
+the backward is :func:`flash_bwd_plain`: a blockwise recompute over K in
+fp32, the kernel's test oracle. Both carry the lse cotangent,
+``ds = p * (dp - delta + g_lse) * scale``.
 
 Positions are global: ``q_offset``/``k_offset`` give the global index of
 local row 0 for causal masking across sequence shards. They may be Python
-ints or int32 one-element tensors on the inputs' device; the kernel reads
+ints or int32 one-element tensors on the inputs' device; the kernels read
 them from device memory, so offsets computed on the device need no host
 sync.
 
@@ -27,8 +35,8 @@ Under ``torch.compile`` the forward is the custom op ``hvd_tpu::flash_fwd``
 ctypes launch cannot be traced): its body is :func:`_flash_fwd`, the kernel
 on a CUDA tensor (counting its launches at run time) and the plain version
 on a CPU one; its fake gives out like q and lse (BH, S_q) fp32; its
-gradient is :func:`flash_bwd_plain`, as the autograd Function's, as the
-operator ``hvd_tpu::flash_bwd`` (:func:`flash_bwd_op`). Integer
+gradient is the operator ``hvd_tpu::flash_bwd`` (:func:`flash_bwd_op`),
+whose body is :func:`_flash_bwd`, as the autograd Function's. Integer
 offsets only: a compiled ring step (``parallel.ring_attention``) passes
 its global offsets as Python ints, constants of its process's graph, so
 every step of a compiled ring is this op at nonzero offsets. Eager calls
@@ -53,13 +61,13 @@ HEAD_DIMS = (16, 32, 64, 128)
 KEY_TILE = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
-#: kernel launches, one added per launch of the CUDA kernel by its wrapper
+#: kernel calls, one added per call of a CUDA kernel path by its wrapper
 #: (under a lock: the serving batcher launches from its own thread while a
 #: training step launches from another)
-LAUNCHES = {"flash_fwd": 0}
+LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0}
 _LAUNCHES_LOCK = threading.Lock()
 
-_kernel = None
+_kernels = {}
 _offsets = {}
 
 
@@ -143,12 +151,31 @@ def bind(lib):
     return fn
 
 
-def _load_kernel():
-    global _kernel
-    if _kernel is None:
+def bind_bwd(lib):
+    """The C entry points of a built backward library, typed: the launch
+    ``hvd_flash_bwd`` and ``hvd_flash_bwd_scratch_floats``, the fp32
+    scratch its kernels need at (BH, S_q)."""
+    fn = lib.hvd_flash_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong]
+                   + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    floats = lib.hvd_flash_bwd_scratch_floats
+    floats.argtypes = [ctypes.c_int, ctypes.c_int]
+    floats.restype = ctypes.c_longlong
+    return fn, floats
+
+
+#: kernel name (as in ``_build.SOURCES``) -> the binder of its library
+BINDERS = {"flash_fwd": bind, "flash_bwd": bind_bwd}
+
+
+def _load_kernel(name="flash_fwd"):
+    fn = _kernels.get(name)
+    if fn is None:
         from . import _build
-        _kernel = bind(_build.load("flash_fwd"))
-    return _kernel
+        fn = _kernels[name] = BINDERS[name](_build.load(name))
+    return fn
 
 
 def offset_tensor(off, device):
@@ -169,38 +196,54 @@ def offset_tensor(off, device):
     return t
 
 
+def _check_inputs(fn, named, dtypes, sm_scale):
+    """The checks of both kernel wrappers (``fn`` names the wrapper in the
+    messages): the (name, tensor) pairs of ``named``, q, k, v first, are
+    contiguous, 16-byte aligned (BH, S, D) CUDA tensors of one dtype in
+    ``dtypes`` and one device; k and v agree, and every later tensor has
+    q's shape; D is in ``HEAD_DIMS``; nothing is empty; ``sm_scale``
+    (default 1/sqrt(D)) is positive and finite, since the bf16/fp16
+    kernels take each row's max on the raw scores. Returns (BH, S_q, S_k,
+    D, sm_scale)."""
+    q, k, v = (t for _, t in named[:3])
+    for name, t in named:
+        if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+            raise ValueError(f"{fn}: {name} must be a CUDA tensor")
+        if t.dim() != 3 or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{fn}: {name} must be a contiguous, 16-byte "
+                             f"aligned (BH, S, D) tensor, got "
+                             f"{tuple(t.shape)}")
+        if t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{fn}: {', '.join(n for n, _ in named)} must "
+                             f"share dtype and device")
+    if q.dtype not in dtypes:
+        raise ValueError(f"{fn}: dtype {q.dtype} not supported")
+    BH, SQ, D = q.shape
+    if k.shape != v.shape or k.shape[0] != BH or k.shape[2] != D \
+            or any(t.shape != q.shape for _, t in named[3:]):
+        raise ValueError(f"{fn}: shapes " + ", ".join(
+            f"{n} {tuple(t.shape)}" for n, t in named) + " disagree")
+    SK = k.shape[1]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{fn}: head dim {D} not in {HEAD_DIMS}")
+    if BH < 1 or SQ < 1 or SK < 1:
+        raise ValueError(f"{fn}: empty input")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    if not (0 < sm_scale < math.inf):
+        raise ValueError(f"{fn}: sm_scale must be positive and finite, got "
+                         f"{sm_scale}")
+    return BH, SQ, SK, D, sm_scale
+
+
 def flash_fwd_cuda(q, k, v, q_offset=0, k_offset=0, causal: bool = True,
                    sm_scale: Optional[float] = None):
     """Launch the Hopper kernel on (BH, S, D) CUDA tensors; returns out
     (BH, S_q, D) in q's dtype and lse (BH, S_q) fp32. Raises on anything
     the kernel does not take; there is no fallback."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
-            raise ValueError(f"flash_fwd_cuda: {name} must be a CUDA tensor")
-        if t.dim() != 3 or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"flash_fwd_cuda: {name} must be a contiguous, "
-                             f"16-byte aligned (BH, S, D) tensor, got "
-                             f"{tuple(t.shape)}")
-        if t.dtype != q.dtype or t.device != q.device:
-            raise ValueError("flash_fwd_cuda: q, k, v must share dtype and "
-                             "device")
-    if q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"flash_fwd_cuda: dtype {q.dtype} not supported")
-    BH, SQ, D = q.shape
-    if k.shape != v.shape or k.shape[0] != BH or k.shape[2] != D:
-        raise ValueError(f"flash_fwd_cuda: shapes q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
-    SK = k.shape[1]
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_fwd_cuda: head dim {D} not in {HEAD_DIMS}")
-    if BH < 1 or SQ < 1 or SK < 1:
-        raise ValueError("flash_fwd_cuda: empty input")
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(D)
-    if not (0 < sm_scale < math.inf):
-        # the bf16/fp16 kernel takes each row's max on the raw scores
-        raise ValueError(f"flash_fwd_cuda: sm_scale must be positive and "
-                         f"finite, got {sm_scale}")
+    BH, SQ, SK, D, sm_scale = _check_inputs(
+        "flash_fwd_cuda", (("q", q), ("k", k), ("v", v)), _DTYPE_CODES,
+        sm_scale)
     qo = offset_tensor(q_offset, q.device)
     ko = offset_tensor(k_offset, q.device)
     kernel = _load_kernel()
@@ -277,6 +320,58 @@ def flash_bwd_plain(q, k, v, out, lse, g, g_lse, q_offset=0, k_offset=0,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_bwd_cuda(q, k, v, out, lse, g, g_lse, q_offset=0, k_offset=0,
+                   causal: bool = True, sm_scale: Optional[float] = None):
+    """Launch the Hopper backward on (BH, S, D) bf16 or fp16 CUDA tensors:
+    q, k, v and the forward's out and lse (BH, S_q) fp32, with their
+    cotangents g and g_lse; returns (dq, dk, dv) in the inputs' dtype.
+    Raises on anything the kernels do not take; there is no fallback."""
+    # autograd may hand over a strided cotangent
+    g = g.contiguous() if isinstance(g, torch.Tensor) else g
+    BH, SQ, SK, D, sm_scale = _check_inputs(
+        "flash_bwd_cuda", (("q", q), ("k", k), ("v", v), ("out", out),
+                           ("g", g)), (torch.bfloat16, torch.float16),
+        sm_scale)
+    for name, t in (("lse", lse), ("g_lse", g_lse)):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.float32 \
+                or tuple(t.shape) != (BH, SQ) or t.device != q.device:
+            raise ValueError(f"flash_bwd_cuda: {name} must be a (BH, S_q) "
+                             f"fp32 tensor on the inputs' device")
+    qo = offset_tensor(q_offset, q.device)
+    ko = offset_tensor(k_offset, q.device)
+    lse, g_lse = lse.contiguous(), g_lse.contiguous()
+    kernel, scratch_floats = _load_kernel("flash_bwd")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    scratch = torch.empty(scratch_floats(BH, SQ), dtype=torch.float32,
+                          device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = kernel(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        g.data_ptr(), lse.data_ptr(), g_lse.data_ptr(), scratch.data_ptr(),
+        scratch.numel(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        qo.data_ptr(), ko.data_ptr(), BH, SQ, SK, D, _DTYPE_CODES[q.dtype],
+        int(bool(causal)), float(sm_scale), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd kernel launch failed: CUDA error {err}")
+    with _LAUNCHES_LOCK:
+        LAUNCHES["flash_bwd"] += 1
+    return dq, dk, dv
+
+
+def _flash_bwd(q, k, v, out, lse, g, g_lse, q_offset, k_offset, causal,
+               sm_scale):
+    """The backward of both autograd wrappers: the kernel on a bf16 or
+    fp16 CUDA tensor (it raises on what it does not take), the plain
+    version on a CPU or an fp32 CUDA tensor."""
+    if q.device.type == "cuda" and q.dtype != torch.float32:
+        return flash_bwd_cuda(q, k, v, out, lse, g, g_lse, q_offset,
+                              k_offset, causal, sm_scale)
+    if q.device.type in ("cpu", "cuda"):
+        return flash_bwd_plain(q, k, v, out, lse, g, g_lse, q_offset,
+                               k_offset, causal=causal, sm_scale=sm_scale)
+    raise ValueError(f"flash attention has no path for device {q.device}")
+
+
 @torch.library.custom_op("hvd_tpu::flash_fwd", mutates_args=())
 def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  q_offset: int, k_offset: int, causal: bool,
@@ -310,12 +405,15 @@ def flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  g_lse: torch.Tensor, q_offset: int, k_offset: int,
                  causal: bool, sm_scale: float
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """:func:`flash_bwd_plain` as one operator of a compiled backward: the
-    compiler calls it and does not lower its blocks (8 key blocks a layer
-    at S 2048, which took most of inductor's 146 s compile of the full
-    model's backward on the card's host)."""
-    return flash_bwd_plain(q, k, v, out, lse, g, g_lse, q_offset, k_offset,
-                           causal=causal, sm_scale=sm_scale)
+    """:func:`_flash_bwd` as one operator of a compiled backward: the
+    compiler calls it and does not trace into it (the kernel's ctypes
+    launch cannot be traced, and the plain version's 8 key blocks a layer
+    at S 2048 took most of inductor's 146 s compile of the full model's
+    backward on the card's host)."""
+    # a compiled graph may hand over inputs with other strides
+    return _flash_bwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                      out.contiguous(), lse, g, g_lse, q_offset, k_offset,
+                      causal, sm_scale)
 
 
 @flash_bwd_op.register_fake
@@ -356,9 +454,8 @@ class FlashAttentionFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g, g_lse):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_bwd_plain(q, k, v, out, lse, g, g_lse,
-                                     *ctx.offsets, causal=ctx.causal,
-                                     sm_scale=ctx.sm_scale)
+        dq, dk, dv = _flash_bwd(q, k, v, out, lse, g, g_lse, *ctx.offsets,
+                                ctx.causal, ctx.sm_scale)
         return dq, dk, dv, None, None, None, None
 
 

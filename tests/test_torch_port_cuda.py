@@ -1,5 +1,6 @@
-"""The port on the card: its CUDA kernel against its plain PyTorch version,
-and every collective verb on CUDA tensors through NCCL in a world of one.
+"""The port on the card: its CUDA kernels against their plain PyTorch
+versions, and every collective verb on CUDA tensors through NCCL in a
+world of one.
 
 Marked ``cuda``: every test skips on a machine without an NVIDIA GPU (the
 CPU suite). On the card, from the root of a checkout:
@@ -13,7 +14,11 @@ Tolerances are chip_smoke.py's, and so is the check of a bf16 or
 fp16 output: fp32 outputs within 1e-5 (order of fp32 sums only); bf16 and
 fp16 outputs within a per-element bound of one output rounding plus one
 rounding step of P, with at most 5% of the elements differing at all;
-lse within 1e-4. The verbs are exact at size 1 (integer-valued data and
+lse within 1e-4. The backward kernel's dq, dk and dv are held to
+flash_bwd_plain element by element within two output roundings plus one
+rounding step of the type on every term of each sum (the kernel rounds P
+and dS to the input type; see ``_bwd_bounds``), and are bit-identical
+from call to call. The verbs are exact at size 1 (integer-valued data and
 power-of-two scales); SyncBatchNorm is held to nn.BatchNorm within 1e-5.
 ResNet-18 in fp32 on the card is held to the port's CPU path, and its
 SGD update to the fp64 update, within chip_smoke.py's cnn limits (TF32
@@ -181,6 +186,250 @@ def test_autograd_function_on_the_card(cuda):
         return qq.grad, kk.grad, vv.grad
     for a, b in zip(grads(True), grads(False)):
         assert (a - b).abs().max().item() <= 1e-4
+
+
+# -- the backward kernel (csrc/flash_bwd.cu) against flash_bwd_plain ---------
+
+def _bwd_case(device, dtype, bh, sq, sk, d, q_off, k_off, causal, seed,
+              with_g_lse=True):
+    """Inputs of one backward call: q, k, v, the forward kernel's out and
+    lse, a cotangent g and (or not) an lse cotangent."""
+    q, k, v = _qkv(device, dtype, bh, sq, sk, d, seed=seed)
+    out, lse = fa.flash_fwd_cuda(q, k, v, q_off, k_off, causal)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    g = torch.randn(bh, sq, d, generator=gen, device=device).to(dtype)
+    g_lse = (torch.randn(bh, sq, generator=gen, device=device) if with_g_lse
+             else torch.zeros(bh, sq, device=device))
+    return q, k, v, out, lse, g, g_lse
+
+
+def _bwd_bounds(q, k, v, out, lse, g, g_lse, q_off, k_off, causal):
+    """Per-element bounds of |kernel - plain| for dq, dk, dv. The plain
+    version computes every product in fp32 and rounds each gradient to the
+    input type once; the kernel rounds P and dS to the input type before
+    the products that accumulate (dV = P^T dO, dK = dS^T Q, dQ = dS K), in
+    fp32. So an element differs by at most one output rounding on each side
+    (2 ulp of the plain value, with room for the order of the fp32 sums)
+    plus the rounding of every term of its sum, at most half a step of the
+    type (2^-m, m mantissa bits) each: within 2^-m (|dS| |K|), 2^-m (|dS|^T
+    |Q|) and 2^-m (P^T |dO|), from P and dS computed densely here in fp32.
+    Besides, each side sums dP - delta + g_lse in fp32 in its own order, so
+    every dS also carries p * scale * 2^-16 (|dO| |V|^T + rowsum |O dO| +
+    |g_lse|): D <= 128 fp32 roundings (2^-24 each) with room for the
+    tensor cores' accumulation. It matters only where dP - delta cancels (a
+    row that sees one key has dS = 0 exactly, and both sides keep noise).
+    A missing or misplaced tile, mask or row term moves some element by
+    the size of its terms, far past the bound."""
+    bits = 7 if q.dtype == torch.bfloat16 else 10
+    scale = 1.0 / q.shape[-1] ** 0.5
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    p = torch.exp(torch.bmm(qf, kf.transpose(1, 2)) * scale - lse[..., None])
+    if causal:
+        qpos = q_off + torch.arange(q.shape[1], device=q.device)
+        kpos = k_off + torch.arange(k.shape[1], device=q.device)
+        p = p.masked_fill(qpos[:, None] < kpos[None], 0.0)
+    delta = (out.float() * gf).sum(-1)
+    ds = p * (torch.bmm(gf, vf.transpose(1, 2)) - delta[..., None]
+              + g_lse[..., None]) * scale
+    noise = p * scale * 2.0 ** -16 * (
+        torch.bmm(gf.abs(), vf.abs().transpose(1, 2))
+        + ((out.float() * gf).abs().sum(-1) + g_lse.abs())[..., None])
+    step = 2.0 ** -bits
+    ds_bound = step * ds.abs() + noise
+    return (torch.bmm(ds_bound, kf.abs()),
+            torch.bmm(ds_bound.transpose(1, 2), qf.abs()),
+            step * torch.bmm(p.transpose(1, 2), gf.abs()))
+
+
+def _check_bwd(q, k, v, out, lse, g, g_lse, q_off, k_off, causal):
+    """The kernel's gradients, each within its bound of the plain
+    version's (the largest |diff| / bound must be <= 1); returns them."""
+    before = fa.LAUNCHES["flash_bwd"]
+    got = fa.flash_bwd_cuda(q, k, v, out, lse, g, g_lse, q_off, k_off,
+                            causal)
+    assert fa.LAUNCHES["flash_bwd"] == before + 1
+    qi = int(q_off) if isinstance(q_off, int) else int(q_off.item())
+    ki = int(k_off) if isinstance(k_off, int) else int(k_off.item())
+    want = fa.flash_bwd_plain(q, k, v, out, lse, g, g_lse, qi, ki, causal)
+    bounds = _bwd_bounds(q, k, v, out, lse, g, g_lse, qi, ki, causal)
+    bits = 7 if q.dtype == torch.bfloat16 else 10
+    for name, a, b, bound in zip(("dq", "dk", "dv"), got, want, bounds):
+        assert a.dtype == q.dtype and a.shape == b.shape, name
+        r = b.float()
+        _, e = torch.frexp(r.abs().clamp_min(torch.finfo(q.dtype).tiny))
+        ulp = torch.ldexp(torch.ones_like(r), e - 1 - bits)
+        ratio = ((a.float() - r).abs() / (2 * ulp + bound)).max().item()
+        assert ratio <= 1, (name, ratio)
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bwd_kernel_matches_plain_ragged(cuda, dtype, d, causal):
+    # S_q != S_k, both ragged; q_offset 70 leaves every row a key; a
+    # nonzero lse cotangent
+    _check_bwd(*_bwd_case(cuda, dtype, 3, 131, 200, d, 70, 0, causal,
+                          seed=d), 70, 0, causal)
+
+
+@pytest.mark.parametrize("s", [64, 127, 128, 129, 255, 257])
+def test_bwd_kernel_matches_plain_at_tile_edges(cuda, s):
+    # both sides of the 64-row streamed tiles and 128-row work tiles, no lse
+    # cotangent (the training path's)
+    _check_bwd(*_bwd_case(cuda, torch.bfloat16, 3, s, s, 64, 0, 0, True,
+                          seed=s, with_g_lse=False), 0, 0, True)
+
+
+@pytest.mark.parametrize("q_off,k_off", [(70, 0), (37, 300), (2048 + 37, 0)])
+def test_bwd_device_offsets_equal_int_offsets(cuda, q_off, k_off):
+    """Nonzero offsets, as ints and as int32 device tensors (the eager
+    ring's): the same gradients, bit for bit, each within its bound."""
+    case = _bwd_case(cuda, torch.bfloat16, 2, 300, 260, 64, q_off, k_off,
+                     True, seed=q_off + k_off)
+    a = _check_bwd(*case, q_off, k_off, True)
+    qo = torch.tensor([q_off], dtype=torch.int32, device=cuda)
+    ko = torch.tensor([k_off], dtype=torch.int32, device=cuda)
+    b = _check_bwd(*case, qo, ko, True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_bwd_rows_that_see_no_key_get_zero(cuda):
+    """Keys start at global position 100: query rows 0-99 see none, and
+    keys 156-255 are seen by no query. Their gradients are exactly 0 (the
+    mask comes before the exponential, and lse is ~ -1e30 there); with
+    every row masked all three gradients are 0."""
+    case = _bwd_case(cuda, torch.bfloat16, 2, 256, 256, 64, 0, 100, True,
+                     seed=3)
+    dq, dk, dv = _check_bwd(*case, 0, 100, True)
+    assert torch.count_nonzero(dq[:, :100]) == 0
+    assert torch.count_nonzero(dq[:, 100:]) > 0
+    assert torch.count_nonzero(dk[:, 156:]) == 0
+    assert torch.count_nonzero(dv[:, 156:]) == 0
+    case = _bwd_case(cuda, torch.bfloat16, 2, 96, 96, 64, 0, 96, True,
+                     seed=4)
+    assert all(torch.count_nonzero(t) == 0
+               for t in _check_bwd(*case, 0, 96, True))
+
+
+@pytest.mark.parametrize("k_off", [2048, 1024])
+def test_bwd_many_work_tiles_a_block_with_nothing_to_see(cuda, k_off):
+    """The ring's later key shards at the training shape (BH 96, S 2048,
+    device offsets): each block walks about a dozen work tiles, all (k_off
+    2048) or some (1024) with no streamed tile a warpgroup can see; the
+    gradients are 0 where nothing is seen and within the bounds elsewhere,
+    and the call returns (the warps of a warpgroup that only waits and
+    passes stay in step)."""
+    qo = torch.tensor([0], dtype=torch.int32, device=cuda)
+    ko = torch.tensor([k_off], dtype=torch.int32, device=cuda)
+    case = _bwd_case(cuda, torch.bfloat16, 96, 2048, 2048, 64, 0, k_off,
+                     True, seed=k_off)
+    if k_off == 2048:
+        grads = fa.flash_bwd_cuda(*case, qo, ko, True)
+        assert all(torch.count_nonzero(t) == 0 for t in grads)
+    else:
+        dq, dk, dv = _check_bwd(*case, qo, ko, True)
+        assert torch.count_nonzero(dq[:, :k_off]) == 0
+        assert torch.count_nonzero(dk[:, 2048 - k_off:]) == 0
+
+
+def test_bwd_kernel_at_the_gpt2_shape_is_deterministic(cuda):
+    """GPT-2 medium's layer (BH 8 x 16 heads, S 1024, D 64, bf16, causal):
+    within the bounds, and two calls give bit-identical dq, dk and dv (each
+    element is summed by one thread in a fixed order; no atomics)."""
+    case = _bwd_case(cuda, torch.bfloat16, 128, 1024, 1024, 64, 0, 0, True,
+                     seed=11, with_g_lse=False)
+    a = _check_bwd(*case, 0, 0, True)
+    b = fa.flash_bwd_cuda(*case, 0, 0, True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_bwd_op_and_function_launch_the_kernel(cuda):
+    """The compiled graph's operator and the eager Function's backward
+    both reach the kernel (one call each) and agree bit for bit."""
+    q, k, v = (t.requires_grad_() for t in _qkv(cuda, torch.bfloat16, 4,
+                                                256, 256, 64, seed=9))
+    g = torch.randn_like(q)
+    grads = []
+    for fn in (fa.FlashAttentionFunction.apply, fa.flash_fwd_op):
+        before = fa.LAUNCHES["flash_bwd"]
+        out, _ = fn(q, k, v, 0, 0, True, 0.125)
+        grads.append(torch.autograd.grad(out, (q, k, v), g))
+        assert fa.LAUNCHES["flash_bwd"] == before + 1
+    assert all(torch.equal(x, y) for x, y in zip(*grads))
+
+
+def test_bwd_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    q, k, v, out, lse, g, g_lse = _bwd_case(cuda, torch.bfloat16, 2, 32, 32,
+                                            64, 0, 0, True, seed=5)
+    before = fa.LAUNCHES["flash_bwd"]
+
+    def call(**kw):
+        args = dict(q=q, k=k, v=v, out=out, lse=lse, g=g, g_lse=g_lse)
+        args.update(kw)
+        return fa.flash_bwd_cuda(**args)
+    with pytest.raises(ValueError, match="dtype"):
+        call(q=q.float(), k=k.float(), v=v.float(), out=out.float(),
+             g=g.float())
+    with pytest.raises(ValueError, match="share dtype"):
+        call(k=k.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        call(q=q.transpose(1, 2).contiguous().transpose(1, 2))
+    flat = torch.zeros(2 * 32 * 64 + 1, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        call(q=flat[1:].view(2, 32, 64))
+    with pytest.raises(ValueError, match="head dim"):
+        case = _bwd_case(cuda, torch.bfloat16, 2, 32, 32, 64, 0, 0, True,
+                         seed=6)
+        fa.flash_bwd_cuda(*(t[..., :48].contiguous() if t.dim() == 3 else t
+                            for t in case))
+    with pytest.raises(ValueError, match="lse"):
+        call(lse=lse.bfloat16())
+    with pytest.raises(ValueError, match="g_lse"):
+        call(g_lse=g_lse[:, :16])
+    with pytest.raises(ValueError, match="int32"):
+        fa.flash_bwd_cuda(q, k, v, out, lse, g, g_lse,
+                          torch.tensor([0], device=cuda), 0)
+    with pytest.raises(ValueError, match="sm_scale"):
+        call(sm_scale=-0.125)
+    assert fa.LAUNCHES["flash_bwd"] == before
+    # a strided cotangent, as autograd may hand over, is taken
+    gt = g.transpose(0, 1).contiguous().transpose(0, 1)
+    assert not gt.is_contiguous()
+    a = call(g=gt)
+    assert all(torch.equal(x, y) for x, y in zip(a, call()))
+
+
+def test_gpt2_shaped_training_step_launches_the_backward_kernel(
+        cuda, monkeypatch):
+    """The transformer step at GPT-2 medium's attention shape (8 x 1024
+    tokens, 16 heads of 64, bf16; 4 layers) launches the backward kernel
+    once a layer and never reaches the plain version."""
+    from horovod_tpu_torch.models.transformer import TransformerConfig
+    from horovod_tpu_torch.parallel.train import make_transformer_train_step
+
+    def plain(*args, **kw):
+        raise AssertionError("the plain backward ran on the card in bf16")
+    monkeypatch.setattr(fa, "flash_bwd_plain", plain)
+    cfg = TransformerConfig(vocab_size=1024, num_layers=4, d_model=1024,
+                            num_heads=16, head_dim=64, mlp_ratio=4,
+                            max_seq_len=1024, dtype=torch.bfloat16)
+    hvd.init(process_sets=[[0]])
+    try:
+        bundle = make_transformer_train_step(
+            cfg, generator=torch.Generator(device=cuda).manual_seed(0))
+        data = torch.randint(0, cfg.vocab_size, (8, 1025), device=cuda,
+                             generator=torch.Generator(device=cuda)
+                             .manual_seed(1))
+        before = dict(fa.LAUNCHES)
+        loss = bundle.step(data[:, :-1], data[:, 1:])
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES["flash_bwd"] - before["flash_bwd"] == 4
+        assert fa.LAUNCHES["flash_fwd"] - before["flash_fwd"] == 4
+        assert torch.isfinite(loss).all()
+        bundle.optimizer.remove_hooks()
+    finally:
+        hvd.shutdown()
 
 
 # -- the collective verbs on NCCL, world of one --------------------------------

@@ -207,3 +207,80 @@ def test_backward_row_skip_matches_full_blocks():
                                block_k=8)
     for a, b in zip(skip, full):
         _close(a, b)
+
+
+def _bwd_inputs(dtype=torch.float32):
+    q, k, v = (t.to(dtype) for t in _t(*_qkv((3, 40, 16), (3, 37, 16))))
+    out, lse = tfa.flash_fwd_plain(q, k, v, 5, 0, True)
+    g = torch.from_numpy(_rand((3, 40, 16), 7)).to(dtype)
+    g_lse = torch.from_numpy(_rand((3, 40), 8))
+    return q, k, v, out, lse, g, g_lse
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_dispatcher_sends_cpu_tensors_to_the_plain_path(dtype):
+    """On a CPU tensor the backward is the plain version, bit for bit, and
+    no kernel call is counted."""
+    args = _bwd_inputs(dtype)
+    before = dict(tfa.LAUNCHES)
+    got = tfa._flash_bwd(*args, 5, 0, True, 0.25)
+    want = tfa.flash_bwd_plain(*args, 5, 0, causal=True, sm_scale=0.25)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert tfa.LAUNCHES == before
+
+
+def test_both_autograd_wrappers_reach_the_backward_dispatcher(monkeypatch):
+    """The eager Function's backward and the compiled graph's operator
+    ``hvd_tpu::flash_bwd`` both call ``_flash_bwd`` with the same
+    arguments, and give the same gradients."""
+    calls = []
+    dispatch = tfa._flash_bwd
+
+    def spy(*args):
+        calls.append(args[7:])
+        return dispatch(*args)
+    monkeypatch.setattr(tfa, "_flash_bwd", spy)
+    q, k, v = (t.requires_grad_() for t in _t(*_qkv((2, 24, 16))))
+    g = torch.from_numpy(_rand((2, 24, 16), 9))
+    grads = []
+    for fn in (tfa.FlashAttentionFunction.apply, tfa.flash_fwd_op):
+        out, lse = fn(q, k, v, 3, 0, True, 0.25)
+        grads.append(torch.autograd.grad((out * g).sum() + lse.sum(),
+                                         (q, k, v)))
+    assert calls == [(3, 0, True, 0.25)] * 2
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+def test_every_built_kernel_has_a_binder():
+    """Each library ``_build.SOURCES`` builds has the binder that types its
+    C entry points."""
+    from horovod_tpu_torch.ops import _build
+    assert set(tfa.BINDERS) == set(_build.SOURCES)
+
+
+@pytest.mark.parametrize("wrapper", ["flash_fwd_cuda", "flash_bwd_cuda"])
+def test_kernel_wrappers_refuse_cpu_tensors_before_loading(wrapper,
+                                                           monkeypatch):
+    """Both kernel wrappers run the shared input checks, which name the
+    wrapper, before anything is built or loaded."""
+    monkeypatch.setattr(tfa, "_load_kernel", lambda *a: pytest.fail(
+        "the kernel was loaded for a CPU tensor"))
+    args = _bwd_inputs(torch.bfloat16)
+    if wrapper == "flash_fwd_cuda":
+        args = args[:3]
+    before = dict(tfa.LAUNCHES)
+    with pytest.raises(ValueError, match=f"^{wrapper}: q must be a CUDA "
+                                         f"tensor"):
+        getattr(tfa, wrapper)(*args)
+    assert tfa.LAUNCHES == before
+
+
+def test_bwd_kernel_names_are_not_the_forwards():
+    """No kernel of the backward's source has ``flash_fwd`` in its name:
+    the forward's roofline averages every kernel whose name holds it."""
+    src = (pathlib.Path(tfa.__file__).parent / "csrc" / "flash_bwd.cu") \
+        .read_text()
+    names = re.findall(r"__global__ void(?: __launch_bounds__\([^)]*\))?\s+"
+                       r"(\w+)\(", src)
+    assert sorted(names) == ["flash_bwd_dkdv", "flash_bwd_dq",
+                             "flash_bwd_prep"]

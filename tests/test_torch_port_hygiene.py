@@ -248,6 +248,21 @@ def test_cuda_source_and_build_recipe():
     assert _build.library_path("flash_fwd").startswith(_build.BUILD_DIR)
 
 
+def test_backward_kernel_source_is_built():
+    """``csrc/flash_bwd.cu`` is a source of its own, built by the same
+    recipe into ``BUILD_DIR``; the Hopper helpers both kernels include
+    are hashed into every library's name."""
+    from horovod_tpu_torch.ops import _build
+    assert _build.SOURCES["flash_bwd"] == "flash_bwd.cu"
+    csrc = os.path.join(PKG, "ops", "csrc")
+    assert os.path.exists(os.path.join(csrc, "flash_bwd.cu"))
+    assert os.path.exists(os.path.join(csrc, "flash_common.cuh"))
+    path = _build.library_path("flash_bwd")
+    assert os.path.dirname(path) == _build.BUILD_DIR
+    assert os.path.basename(path).startswith("flash_bwd-")
+    assert path != _build.library_path("flash_fwd")
+
+
 def test_sharded_step_has_no_fallback():
     """The sharded forward, its collectives and the mesh step catch
     nothing: a failed gather, sum or kernel launch raises."""
