@@ -57,6 +57,15 @@ reduce-scatters and all-to-alls and flash ops in ``bundle.compile_log``
 (counted over the graph and its subgraphs: an autograd Function's
 forward and backward, a checkpointed ring step).
 
+Given an ``Lfm2MoeConfig`` (``models/lfm2.py``) the step trains that
+hybrid decoder on the same path (the same optimizer, loss and flash
+injection; the kernel takes as many K/V heads as query heads, so the
+model repeats K and V to the query heads before it), with the forward
+and loss inside the span ``step.forward`` (``tracing.py``), under
+which the model's ``moe.*`` and ``conv.short`` spans nest. It runs whole
+on every process: ``mesh=None`` is Horovod's data parallelism; a mesh
+and ``compiled`` are refused.
+
 The mesh train-state helpers (:func:`train_state_tree`,
 :func:`run_mesh_step`, :func:`save_mesh_train_state`,
 :func:`restore_mesh_train_state`, :func:`drain_mesh_train_state`) run,
@@ -74,6 +83,7 @@ import torch.nn.functional as F
 
 from .. import collectives as _c
 from .. import faults as _faults
+from .. import tracing as _tracing
 from ..basics import resolve_device
 from ..models.convert import nest
 from ..models.transformer import Transformer, TransformerConfig
@@ -183,6 +193,8 @@ def make_transformer_train_step(
         compile_backend: str = "inductor") -> TrainStepBundle:
     """Build the model, its DistributedOptimizer and the step function.
 
+    ``cfg``: a ``TransformerConfig``, or an ``Lfm2MoeConfig`` for the
+    LFM2-MoE decoder (no mesh, not compiled; see the module docstring).
     ``optimizer``: a callable taking the model's parameters and returning a
     ``torch.optim`` optimizer (default :func:`default_optimizer`).
     ``attention``: "flash" (the kernel) or "default" (the model's plain
@@ -200,6 +212,10 @@ def make_transformer_train_step(
         raise ValueError(f"attention must be 'flash' or 'default', "
                          f"got {attention!r}")
     attn = flash_attention_fn if attention == "flash" else None
+    from ..models.lfm2 import Lfm2MoeConfig
+    if isinstance(cfg, Lfm2MoeConfig):
+        return _lfm2_bundle(cfg, dev, optimizer, attn, generator, mesh,
+                            compiled)
     specs = None
     if mesh is not None:
         _check_mesh(mesh, cfg, dev)
@@ -253,6 +269,37 @@ def make_transformer_train_step(
 
     return TrainStepBundle(model=model, optimizer=opt, step=step, mesh=mesh,
                            sharding=sharding)
+
+
+def _lfm2_bundle(cfg, dev, optimizer, attn, generator, mesh,
+                 compiled: bool) -> TrainStepBundle:
+    """The bundle of an ``Lfm2MoeConfig``: the eager step of the module
+    docstring with the whole model on every process."""
+    from ..models.lfm2 import Lfm2Moe
+    if compiled:
+        raise ValueError("the LFM2-MoE decoder has no compiled step")
+    if mesh is not None:
+        raise ValueError("the LFM2-MoE decoder has no mesh step: it runs "
+                         "whole on each process (mesh=None, Horovod's data "
+                         "parallelism)")
+    cfg = dataclasses.replace(cfg, attention_fn=attn)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    model = Lfm2Moe(cfg, device=dev, generator=generator)
+    opt = DistributedOptimizer((optimizer or default_optimizer)(
+        model.parameters()), named_parameters=model.named_parameters())
+
+    def step(tokens, targets):
+        opt.zero_grad(set_to_none=True)
+        with _tracing.step_forward(opt._steps):
+            logits = model(tokens.to(dev))
+            loss = F.cross_entropy(logits.reshape(-1, cfg.vocab_size),
+                                   targets.to(dev).reshape(-1).long())
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    return TrainStepBundle(model=model, optimizer=opt, step=step)
 
 
 def _compiled_bundle(cfg, model, opt, dev, mesh, sharding,

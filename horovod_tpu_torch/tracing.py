@@ -52,8 +52,23 @@ span                        emitted by
 ``opt.wait``                the host wait for one bucket's handle, arg
                             ``bucket``
 ``opt.update``              the wrapped optimizer's ``step``
+``step.forward``            a training step's forward and loss, for a model
+                            that emits spans of its own (the LFM2 decoder,
+                            ``models/lfm2.py``), under the step's trace
+``moe.route``               ``parallel.moe.dropless_moe``: the router, the
+                            top-k and the sort of the slots by expert; args
+                            (sampled steps only) ``held_assignments``,
+                            ``held_load_max``, ``held_load_min``,
+                            ``dropped``
+``moe.experts``             the held experts' grouped SwiGLU products
+``moe.combine``             the experts' outputs weighted and summed back
+``conv.short``              ``models/lfm2.py``'s gated short convolution:
+                            the two gates and the causal depthwise taps,
+                            without its two projections
 ==========================  =================================================
 
+``moe.*`` and ``conv.short`` sit under ``step.forward``, and open their
+ranges while a profiler records whether or not the step is sampled.
 ``dispatch.*`` sit under their collective's span, which the handle
 carries to the dispatcher thread; ``opt.wait`` and ``host.sync`` under
 ``opt.drain``; the rest of a step under ``opt.step``. The compiled plane
@@ -112,7 +127,8 @@ from . import _locks
 
 __all__ = ["TraceContext", "Tracer", "Span", "StepTrace", "tracer", "reset",
            "request_span", "span", "span_for", "emit_span", "collective",
-           "step_trace", "current", "set_current", "sampled",
+           "step_trace", "step_forward", "current", "set_current",
+           "sampled",
            "note_request",
            "last_request_id", "new_request_id", "TRACE_PARENT_HEADER",
            "ATTEMPT_HEADER", "KV_SCOPE"]
@@ -388,6 +404,7 @@ class _NullSpan:
     span_id = None
     trace_id = None
     sampled = False
+    recorded = False
 
     def __enter__(self):
         return self
@@ -426,6 +443,13 @@ class Span:
         self.span_id = uuid.uuid4().hex[:16]
         self.parent_id = parent_id
         self._args = dict(args) if args else None
+
+    @property
+    def recorded(self) -> bool:
+        """Whether the span reaches the tracer (a sampled trace), and not
+        only the profiler's range: what its args cost is paid only
+        then."""
+        return self._tr is not None
 
     def annotate(self, **kw) -> None:
         """Attach args to the span before it closes."""
@@ -611,3 +635,17 @@ def step_trace(n: int, t0: float) -> Optional[StepTrace]:
     if tr is None and not _profiler._is_profiler_enabled:
         return None
     return StepTrace(tr, n, t0)
+
+
+def step_forward(n: int):
+    """The span ``step.forward`` of training step ``n``'s forward and
+    loss, entered by the caller: recorded under the trace ``step-<n>``
+    when the tracer samples it, a range alone while a profiler records,
+    else the no-op span. Inside it, :func:`span` binds to it."""
+    tr = _TRACER if _RESOLVED else tracer()
+    if tr is not None and not sampled(f"step-{n}", tr.rate):
+        tr = None
+    if tr is None and not _profiler._is_profiler_enabled:
+        return _NULL_SPAN
+    return Span(tr, "step.forward", f"step-{n}", None)
+
